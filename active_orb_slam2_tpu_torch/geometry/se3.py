@@ -1,0 +1,145 @@
+"""SE(3) rigid transforms on flat tensors.
+
+Port of the SE3 half of ``active_orb_slam2_tpu/geometry/se3.py`` (Sim3
+waits for loop closing).  Same representation:
+
+* pose: 7-vector ``[qw, qx, qy, qz, tx, ty, tz]`` acting as
+  ``x_out = R(q) @ x + t``; ``Tcw`` maps world -> camera.
+* tangent: ``[omega(3), nu(3)]``.
+
+All functions broadcast over leading axes; float32 throughout.
+"""
+
+import torch
+
+_EPS = 1e-9
+
+
+def quat_normalize(q):
+    """Normalize quaternion(s) [..., 4]; guards the zero quaternion."""
+    n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    return q / torch.clamp(n, min=_EPS)
+
+
+def quat_mul(a, b):
+    """Hamilton product a*b, both [..., 4] = [w, x, y, z]."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_conj(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_rotate(q, v):
+    """Rotate v [..., 3] by q [..., 4]: v + 2 qv x (qv x v + qw v)."""
+    qw = q[..., :1]
+    qv = q[..., 1:]
+    qv, v = torch.broadcast_tensors(qv, v)
+    uv = torch.linalg.cross(qv, v, dim=-1) + qw * v
+    return v + 2.0 * torch.linalg.cross(qv, uv, dim=-1)
+
+
+def quat_to_mat(q):
+    """Quaternion [..., 4] -> rotation matrix [..., 3, 3]."""
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def _so3_exp(w):
+    """so(3) vector [..., 3] -> quaternion, Taylor-safe near zero."""
+    theta2 = (w * w).sum(-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    small = theta2 < 1e-8
+    k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(0.5 * theta) / theta)
+    cw = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(0.5 * theta))
+    return torch.cat([cw, k * w], dim=-1)
+
+
+def _hat(w):
+    """[..., 3] -> skew matrix [..., 3, 3]."""
+    z = torch.zeros_like(w[..., 0])
+    return torch.stack([
+        z, -w[..., 2], w[..., 1],
+        w[..., 2], z, -w[..., 0],
+        -w[..., 1], w[..., 0], z,
+    ], dim=-1).reshape(w.shape[:-1] + (3, 3))
+
+
+def _left_jacobian_so3(w):
+    """SO(3) left Jacobian J_l(w) [..., 3, 3] (Taylor-safe)."""
+    theta2 = (w * w).sum(-1)[..., None, None]
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    W = _hat(w)
+    W2 = W @ W
+    small = theta2 < 1e-8
+    a = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / torch.clamp(theta2, min=_EPS))
+    b = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta))
+                    / torch.clamp(theta2 * theta, min=_EPS))
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + a * W + b * W2
+
+
+def se3_identity(shape=(), device=None):
+    out = torch.zeros(tuple(shape) + (7,), dtype=torch.float32, device=device)
+    out[..., 0] = 1.0
+    return out
+
+
+def se3_compose(a, b):
+    """(a*b)(x) = a(b(x)); both [..., 7]."""
+    q = quat_mul(a[..., :4], b[..., :4])
+    t = quat_rotate(a[..., :4], b[..., 4:7]) + a[..., 4:7]
+    return torch.cat([quat_normalize(q), t], dim=-1)
+
+
+def se3_inverse(p):
+    qi = quat_conj(p[..., :4])
+    ti = -quat_rotate(qi, p[..., 4:7])
+    return torch.cat([qi, ti], dim=-1)
+
+
+def se3_apply(p, x):
+    """Apply pose [..., 7] to point(s) [..., 3]."""
+    return quat_rotate(p[..., :4], x) + p[..., 4:7]
+
+
+def se3_exp(delta):
+    """Twist [..., 6] = [omega, nu] -> SE3 [..., 7] (exact exp map)."""
+    w, v = delta[..., :3], delta[..., 3:6]
+    q = _so3_exp(w)
+    t = (_left_jacobian_so3(w) @ v[..., None])[..., 0]
+    return torch.cat([q, t], dim=-1)
+
+
+def se3_retract(p, delta):
+    """Left-multiplicative update exp(delta) * p."""
+    return se3_compose(se3_exp(delta), p)
+
+
+def se3_to_mat44(p):
+    R = quat_to_mat(p[..., :4])
+    t = p[..., 4:7]
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    # built on the device: a tensor from a Python list would be a
+    # host-to-device copy that waits on the stream
+    bottom = torch.zeros(p.shape[:-1] + (1, 4), dtype=p.dtype,
+                         device=p.device)
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
