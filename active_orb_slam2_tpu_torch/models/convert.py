@@ -14,7 +14,8 @@ from active_orb_slam2_tpu_torch.models.map_state import MapState
 from active_orb_slam2_tpu_torch.models.tracking import TrackState
 
 
-def _to_torch(a, device):
+def to_torch(a, device=None):
+    """numpy array -> tensor on ``device``; uint32 as int32 bits."""
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
@@ -28,7 +29,7 @@ def _to_numpy(t, uint32: bool):
 
 def map_from_jax_numpy(arrays: dict, device=None) -> MapState:
     """MapState on ``device`` from the JAX map's fields as numpy arrays."""
-    return MapState(**{f: _to_torch(arrays[f], device)
+    return MapState(**{f: to_torch(arrays[f], device)
                        for f in MapState._fields})
 
 
@@ -42,7 +43,7 @@ def map_to_jax_numpy(m: MapState) -> dict:
 def track_state_from_jax_numpy(arrays: dict, device=None) -> TrackState:
     """TrackState on ``device`` from the JAX state's fields as numpy
     arrays."""
-    return TrackState(**{f: _to_torch(arrays[f], device)
+    return TrackState(**{f: to_torch(arrays[f], device)
                          for f in TrackState._fields})
 
 

@@ -1,10 +1,16 @@
-"""Motion-only pose optimization (``Optimizer::PoseOptimization``).
+"""Motion-only pose optimization and Schur-complement bundle adjustment.
 
-Port of the pose-optimization half of
-``active_orb_slam2_tpu/models/optimizer.py`` (bundle adjustment waits
-for local mapping).  :func:`pose_optimization` is the reference form of
-the motion-only BA and the oracle of the fused kernel
-(``ops/pose_opt_kernel.py``).
+Port of ``active_orb_slam2_tpu/models/optimizer.py``.
+:func:`pose_optimization` is the reference form of the motion-only BA
+and the oracle of the fused kernel (``ops/pose_opt_kernel.py``).
+:func:`bundle_adjustment` is the local BA of the keyframe mapping: the
+same Schur step with the dense [Pl, Lt, 6, 3] coupling, LM damping
+before the reduction, carried-chi2 accept/reject and chi2
+reclassification.  Float32 throughout (the JAX package pins its BA
+products to ``highest``; TF32 stays off).  The reduced camera system is
+solved by ``torch.linalg.solve_ex`` without its error check, which
+would wait on the card; like ``jnp.linalg.solve`` it is an LU solve
+that returns non-finite values for a singular system.
 
 Edge convention: every observation is a 3-vector residual (u, v, uR);
 monocular observations zero the third component.  Information is
@@ -16,8 +22,10 @@ from typing import NamedTuple
 
 import torch
 
+from active_orb_slam2_tpu_torch.geometry.linalg3 import inv3
 from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
-from active_orb_slam2_tpu_torch.geometry.se3 import quat_rotate, se3_retract
+from active_orb_slam2_tpu_torch.geometry.se3 import (
+    quat_rotate, quat_to_mat, se3_retract)
 
 CHI2_MONO = 5.991      # 95% chi2, 2 dof
 CHI2_STEREO = 7.815    # 95% chi2, 3 dof
@@ -69,10 +77,11 @@ def solve_spd(H, b, n: int = 6):
 
 
 def edge_terms(cam: CameraParams, pose, pw, obs_uvr, stf):
-    """Residuals and pose Jacobian of all edges at one pose, in component
-    form: r [3, E], J [3, 6, E], zpos [E] bool.  ``stf`` [E] float is 1
-    for stereo edges and 0 for monocular ones."""
-    pc = quat_rotate(pose[:4], pw) + pose[4:7]
+    """Residuals and pose Jacobian of all edges at one pose [7] or at one
+    pose per edge [E, 7], in component form: r [3, E], J [3, 6, E], zpos
+    [E] bool.  ``stf`` [E] float is 1 for stereo edges and 0 for
+    monocular ones.  J[:, 3:6] is d residual / d pc."""
+    pc = quat_rotate(pose[..., :4], pw) + pose[..., 4:7]
     x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
     zs = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
     iz = 1.0 / zs
@@ -163,3 +172,155 @@ def pose_optimization(cam: CameraParams, pose0, pw, obs_uvr, level,
         pose=pose, inliers=inliers,
         n_inliers=inliers.sum().to(torch.int32),
         chi2=torch.where(inliers, c2, torch.zeros_like(c2)).sum())
+
+
+# --------------------------------------------------------- bundle adjustment
+
+class BAEdges(NamedTuple):
+    """Fixed-shape edge list: E edges over Lt cameras and Pl points."""
+    cam_idx: torch.Tensor     # [E] int into the camera block
+    pt_idx: torch.Tensor      # [E] int into the point block
+    obs_uvr: torch.Tensor     # [E, 3]
+    level: torch.Tensor       # [E] int
+    has_stereo: torch.Tensor  # [E] bool
+    valid: torch.Tensor       # [E] bool
+
+
+class BAResult(NamedTuple):
+    poses: torch.Tensor        # [Lt, 7]
+    points: torch.Tensor       # [Pl, 3]
+    edge_inliers: torch.Tensor  # [E] bool
+    chi2: torch.Tensor
+
+
+def _ba_linearize(cam, poses, points, e: BAEdges, inliers):
+    """Residuals r [E, 3], Jacobians Jc [E, 3, 6] and Jx [E, 3, 3],
+    Huber IRLS weights w [E], chi2 c2 [E] and zpos [E] at the current
+    estimate."""
+    pw = points[e.pt_idx]
+    pose_e = poses[e.cam_idx]
+    r, J, zpos = edge_terms(cam, pose_e, pw, e.obs_uvr,
+                            e.has_stereo.to(torch.float32))
+    r = r.T
+    Jc = J.permute(2, 0, 1)
+    Jx = Jc[..., 3:6] @ quat_to_mat(pose_e[:, :4])
+    w_info = inv_sigma2(e.level)
+    c2 = w_info * (r * r).sum(-1)
+    chi2_th = torch.where(e.has_stereo, CHI2_STEREO, CHI2_MONO).to(
+        torch.float32)
+    huber = torch.clamp(torch.sqrt(chi2_th)
+                        / torch.sqrt(torch.clamp(c2, min=1e-12)), max=1.0)
+    w = w_info * huber
+    w = torch.where(inliers & zpos, w, 0.0)
+    return r, Jc, Jx, w, c2, zpos
+
+
+def _gram(Ja, w, Jb):
+    """sum over the residual rows of w Ja^T Jb, per edge: [E, n, m]."""
+    return (Ja * w[:, None, None]).transpose(1, 2) @ Jb
+
+
+def _embed_diag(blocks):
+    """[L, 6, 6] block-diagonal -> [L*6, L*6] dense."""
+    L = blocks.shape[0]
+    eye = torch.eye(L, dtype=blocks.dtype, device=blocks.device)
+    return torch.einsum("lij,lm->limj", blocks, eye).reshape(L * 6, L * 6)
+
+
+def _ba_solve_step(cam, poses, points, e: BAEdges, fixed_cam, inliers, lam):
+    """One Schur-reduced damped Gauss-Newton step.
+    Returns (delta_poses [Lt, 6], delta_points [Pl, 3], chi2 at the
+    current estimate)."""
+    Lt, Pl = poses.shape[0], points.shape[0]
+    dev = points.device
+    r, Jc, Jx, w, c2, zpos = _ba_linearize(cam, poses, points, e, inliers)
+    chi2 = torch.where(inliers & zpos, c2, 0.0).sum()
+    cam_free = ~fixed_cam[e.cam_idx]
+    Jc = Jc * cam_free[:, None, None]
+    ci, pi = e.cam_idx.long(), e.pt_idx.long()
+    wr = (w[:, None] * r)[:, :, None]                      # [E, 3, 1]
+
+    Hcc = torch.zeros((Lt, 6, 6), device=dev).index_add_(
+        0, ci, _gram(Jc, w, Jc))
+    bc = torch.zeros((Lt, 6), device=dev).index_add_(
+        0, ci, -(Jc.transpose(1, 2) @ wr)[..., 0])
+    Hpp = torch.zeros((Pl, 3, 3), device=dev).index_add_(
+        0, pi, _gram(Jx, w, Jx))
+    bp = torch.zeros((Pl, 3), device=dev).index_add_(
+        0, pi, -(Jx.transpose(1, 2) @ wr)[..., 0])
+    # camera-point coupling, dense per (point, camera): [Pl, Lt, 6, 3]
+    B = torch.zeros((Pl * Lt, 6, 3), device=dev).index_add_(
+        0, pi * Lt + ci, _gram(Jc, w, Jx)).view(Pl, Lt, 6, 3)
+
+    # LM diagonal damping on both blocks before the reduction
+    eye3 = torch.eye(3, device=dev)
+    eye6 = torch.eye(6, device=dev)
+    Hpp_inv = inv3(Hpp + lam * Hpp * eye3 + 1e-6 * eye3, eps=1e-30)
+    Hcc_d = Hcc + lam * Hcc * eye6 + 1e-6 * eye6
+
+    C = torch.einsum("plij,pjk->plik", B, Hpp_inv)         # [Pl, Lt, 6, 3]
+    S_red = torch.einsum("plik,pmjk->limj", C, B)          # [Lt, 6, Lt, 6]
+    S = _embed_diag(Hcc_d) - S_red.reshape(Lt * 6, Lt * 6)
+    g = (bc - torch.einsum("plik,pk->li", C, bp)).reshape(Lt * 6)
+
+    # pin fixed cameras to identity rows
+    fixed_rows = fixed_cam[:, None].expand(Lt, 6).reshape(-1)
+    S = torch.where(fixed_rows[:, None] | fixed_rows[None, :],
+                    torch.eye(Lt * 6, device=dev), S)
+    g = torch.where(fixed_rows, 0.0, g)
+
+    dc = torch.linalg.solve_ex(S, g[:, None], check_errors=False)[0]
+    dc = dc.reshape(Lt, 6)
+    dp = (Hpp_inv @ (bp - torch.einsum("plik,li->pk", B, dc))[..., None])
+    return dc, dp[..., 0], chi2
+
+
+def _ba_chi2(cam, poses, points, e: BAEdges, inliers):
+    _, _, _, _, c2, zpos = _ba_linearize(cam, poses, points, e, inliers)
+    return torch.where(inliers & zpos, c2, 0.0).sum()
+
+
+def bundle_adjustment(cam: CameraParams, poses0, points0, e: BAEdges,
+                      fixed_cam, iters_a: int = 5, iters_b: int = 10
+                      ) -> BAResult:
+    """Local / global BA with the reference's 5 + 10 schedule
+    (``Optimizer::LocalBundleAdjustment``): ``iters_a`` LM iterations,
+    chi2 reclassification, ``iters_b`` more, final outlier flags.
+
+    Args: poses0 [Lt, 7]; points0 [Pl, 3]; fixed_cam [Lt] bool; e: edges.
+    """
+    dev = points0.device
+    chi2_th = torch.where(e.has_stereo, CHI2_STEREO, CHI2_MONO).to(
+        torch.float32)
+
+    def lm_iters(poses, points, inliers, n):
+        # carried-chi2 accept/reject: one linearization per iteration,
+        # the current chi2 judges the previous step
+        best_p, best_x = poses, points
+        best_chi2 = torch.full((), float("inf"), device=dev)
+        lam = torch.full((), 1e-4, device=dev)
+        for _ in range(n):
+            dc, dp, chi2 = _ba_solve_step(cam, poses, points, e, fixed_cam,
+                                          inliers, lam)
+            worse = chi2 > best_chi2
+            lam = torch.clamp(torch.where(worse, lam * 4.0, lam * 0.5),
+                              1e-8, 1e2)
+            best_p = torch.where(worse, best_p, poses)
+            best_x = torch.where(worse, best_x, points)
+            best_chi2 = torch.minimum(chi2, best_chi2)
+            poses = torch.where(worse, best_p, se3_retract(poses, dc))
+            points = torch.where(worse, best_x, points + dp)
+        better = _ba_chi2(cam, poses, points, e, inliers) <= best_chi2
+        return (torch.where(better, poses, best_p),
+                torch.where(better, points, best_x))
+
+    def reclassify(poses, points, inliers):
+        _, _, _, _, c2, zpos = _ba_linearize(cam, poses, points, e, inliers)
+        return e.valid & zpos & (c2 <= chi2_th), c2
+
+    poses, points = lm_iters(poses0, points0, e.valid, iters_a)
+    inliers, _ = reclassify(poses, points, e.valid)
+    poses, points = lm_iters(poses, points, inliers, iters_b)
+    inliers, c2 = reclassify(poses, points, inliers)
+    return BAResult(poses=poses, points=points, edge_inliers=inliers,
+                    chi2=torch.where(inliers, c2, 0.0).sum())

@@ -1,4 +1,5 @@
-"""System: the public API and host orchestrator (RGB-D tracking path).
+"""System: the public API and host orchestrator (RGB-D path with local
+mapping).
 
 Port of the RGB-D subset of ``active_orb_slam2_tpu/models/system.py``.
 Each frame is one step on the device (ORB extraction, tracking, the
@@ -6,18 +7,28 @@ keyframe decision and insertion) that never blocks the host; the
 per-frame stats vectors are retired in batches: the host stacks a group
 on the device, starts one non-blocking copy into pinned memory and
 records a CUDA event, and runs the state machine (LOST detection,
-trajectory records) once the event has completed.  The host therefore
-runs a bounded number of frames behind the device.  ``flush()`` drains
-the queue; reading ``System.state`` flushes.  On the CPU retirement is
-immediate.
+keyframe mapping, trajectory records) once the event has completed.
+The host therefore runs a bounded number of frames behind the device.
+``flush()`` drains the queue; reading ``System.state`` flushes.  On the
+CPU a sealed batch is ready at once.
 
-What the slice does not run raises ``NotImplementedError`` naming its
-ROADMAP item: keyframe mapping (``use_mapping=True``), loop closing,
-stereo and monocular input, relocalization of a LOST frame,
-localization-only mode, and map checkpoint / save / load.
+Each keyframe the device inserted runs one keyframe-mapping call
+(``models/local_mapping.py::build_keyframe_mapping``: triangulation,
+fusion, point culling, local BA, keyframe culling) on the arena in
+place.  Its cull victim, with the parent and pose snapshots, goes to
+pinned memory the same way and is read at the next keyframe event, so
+the host never waits on the mapping.  An arena that is full of
+keyframes forces an eviction, which does wait on the card, as in the
+JAX package.
+
+What the port does not run yet raises ``NotImplementedError`` naming
+its ROADMAP item: loop closing, stereo and monocular input,
+relocalization of a LOST frame (including the first frame after
+``load_map``), and localization-only mode.
 """
 
 import json
+import sys
 import time
 
 import numpy as np
@@ -27,7 +38,10 @@ from active_orb_slam2_tpu_torch.config import SlamConfig
 from active_orb_slam2_tpu_torch.geometry.se3 import se3_to_mat44
 from active_orb_slam2_tpu_torch.io.trajectory import (
     resolve_frame_poses, save_kitti, save_tum)
+from active_orb_slam2_tpu_torch.models import convert
 from active_orb_slam2_tpu_torch.models.frame import build_frame_pipeline
+from active_orb_slam2_tpu_torch.models.local_mapping import (
+    build_keyframe_culling, build_keyframe_mapping)
 from active_orb_slam2_tpu_torch.models.map_state import empty_map
 from active_orb_slam2_tpu_torch.models.tracking import (
     STATS_POSE, STATS_REF_FID, STATS_REF_POSE, build_create_keyframe,
@@ -45,14 +59,31 @@ def _not_ported(what: str, item: int):
         f"(ROADMAP item {item})")
 
 
+def _to_pinned(t):
+    """Start a non-blocking copy of device tensor ``t`` into pinned host
+    memory; returns (host tensor, CUDA event or None on the CPU)."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _landed(host, event):
+    """The host tensor of a :func:`_to_pinned` copy, once it has landed."""
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
+
+
 class System:
-    """RGB-D SLAM engine, tracking path with local mapping off."""
+    """RGB-D SLAM engine: tracking with local mapping at each keyframe."""
 
     def __init__(self, cfg: SlamConfig, use_mapping: bool = True,
                  use_loop_closing: bool = False, pipeline_depth: int = 6,
                  retire_batch: int = 4, device="cpu"):
-        if use_mapping:
-            raise _not_ported("keyframe mapping (use_mapping=True)", 13)
         if use_loop_closing:
             raise _not_ported("loop closing", 15)
         self.cfg = cfg
@@ -61,6 +92,10 @@ class System:
         self.track_step = build_track_step(cfg)
         self.create_kf = build_create_keyframe(cfg)
         self.use_mapping = use_mapping
+        # the keyframe-rate mapping stages in one call per keyframe
+        # event; forced eviction for the arena-full path only
+        self.keyframe_mapping = build_keyframe_mapping(cfg)
+        self.kf_culling_forced = build_keyframe_culling(cfg, force=True)
         self.pipeline_depth = max(int(pipeline_depth), 0)
         self.retire_batch = max(int(retire_batch), 1)
         self._clear()
@@ -75,12 +110,20 @@ class System:
         self._pending = []               # in-flight frame records
         self.frame_id = 0
         self.kf_seq = 0                  # monotone keyframe counter
+        self.n_live_kf = 0               # live (valid) keyframe count
         self.last_kf_slot = -1
         self._last_kf_pose_np = None
         self.rel_records = []            # (t, ref_kf_slot, Tcr) per frame
         self.kf_records = []             # (t, kf_slot) per keyframe
         self._live_slots = set()
         self._slot_fid = {}              # slot -> source frame id (gen tag)
+        # (slot, fid) -> (parent, T_vp, pfid, created_frame): the lineage
+        # of culled keyframes that in-flight frames may still reference,
+        # path-compressed at cull time and pruned (_prune_redirects)
+        self._cull_redirect = {}
+        self._kf_ins_frames = []         # frame ids of keyframe insertions
+        self._pending_culls = []         # cull snapshots not yet read
+        self.n_forced_culls = 0          # arena-full evictions (they wait)
         self.metrics = []                # per-frame dict
 
     def reset(self):
@@ -96,10 +139,11 @@ class System:
         return self._state
 
     def flush(self):
-        """Retire every in-flight frame."""
+        """Retire every in-flight frame and read every pending cull."""
         self._seal_stats_batch()
         while self._pending:
             self._retire(len(self._pending))
+        self._process_pending_culls()
 
     def _seal_stats_batch(self):
         """Stack the open group of per-frame stats on the device and start
@@ -107,14 +151,7 @@ class System:
         group = [e for e in self._pending if e.get("batch") is None]
         if not group:
             return
-        arr = torch.stack([e["stats"] for e in group])
-        if arr.is_cuda:
-            host = torch.empty(arr.shape, dtype=arr.dtype, pin_memory=True)
-            host.copy_(arr, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host, event = arr, None
+        host, event = _to_pinned(torch.stack([e["stats"] for e in group]))
         batch = {"host": host, "event": event}
         for i, e in enumerate(group):
             e["batch"] = batch
@@ -136,7 +173,7 @@ class System:
     def _retire(self, n):
         """Pop the n oldest in-flight frames and run the host state
         machine on their stats: metrics, LOST detection, keyframe
-        mirrors, trajectory records."""
+        mirrors and mapping, trajectory records."""
         batch = self._pending[:n]
         if any(e.get("batch") is None for e in batch):
             self._seal_stats_batch()
@@ -160,28 +197,171 @@ class System:
                 if kf_slot >= 0:
                     self._register_keyframe(kf_slot, e["ts"], e["frame_id"])
             # the generation tag must match: a slot can be culled and
-            # re-tenanted while a frame is in flight.  Keyframe culling
-            # (and with it the cull-redirect lineage) comes with local
-            # mapping, ROADMAP item 13; until then a mismatch freezes
-            # the record at the tracked pose.
+            # re-tenanted while a frame is in flight.  A mismatched record
+            # walks the cull-redirect lineage to a live ancestor.
             ref_fid = int(s[STATS_REF_FID])
             gen_ok = (ref_slot >= 0 and ref_slot in self._live_slots
                       and self._slot_fid.get(ref_slot) == ref_fid)
             if ref_slot >= 0 and not gen_ok:
-                self.rel_records.append(
-                    (e["ts"], -1, np.asarray(pose_np, np.float64)))
+                self.rel_records.append(self._follow_lineage(
+                    e["ts"], pose_np, ref_pose_np, ref_slot, ref_fid))
             else:
                 self._record_frame(e["ts"], pose_np,
                                    ref=ref_slot if ref_slot >= 0 else None,
                                    ref_pose=ref_pose_np)
+        # arena full: evict a keyframe so the device's (live < max)
+        # insertion gate reopens
+        if self.n_live_kf >= self.cfg.map.max_keyframes:
+            self._cull_for_space()
+        self._prune_redirects()
+
+    def _follow_lineage(self, ts, pose_np, ref_pose_np, slot, fid):
+        """The trajectory record of a frame whose reference keyframe
+        (slot, fid) was culled: Tcr composed along the cull redirects to
+        a live ancestor, or an absolute pose where the lineage ends in
+        one, or the tracked pose where there is no lineage."""
+        tcr = np_se3.se3_compose(
+            np.asarray(pose_np, np.float64),
+            np_se3.se3_inverse(np.asarray(ref_pose_np, np.float64)))
+        hops = 0
+        for _ in range(64):                  # bounded lineage walk
+            nxt = self._cull_redirect.get((slot, fid))
+            if nxt is None:
+                break
+            tcr = np_se3.se3_compose(tcr, nxt[1])
+            slot, fid = nxt[0], nxt[2]
+            hops += 1
+            if slot < 0:
+                break
+        if (slot >= 0 and slot in self._live_slots
+                and self._slot_fid.get(slot) == fid):
+            return (ts, slot, tcr)
+        if hops > 0 and slot < 0:
+            return (ts, -1, tcr)         # tcr already composes a world pose
+        return (ts, -1, np.asarray(pose_np, np.float64))
 
     def _register_keyframe(self, k, timestamp, frame_id):
-        """Mirror a keyframe the device inserted."""
+        """Mirror a keyframe the device inserted and run the keyframe
+        mapping on it.  Nothing here waits on the card: the previous
+        event's cull snapshot has landed by now, and this event's is
+        read at the next one."""
+        # process the previous cull before the new slot is mirrored (the
+        # new keyframe may re-tenant the culled slot)
+        self._process_pending_culls()
         self.kf_seq += 1
+        self.n_live_kf += 1
         self._live_slots.add(k)
         self._slot_fid[k] = frame_id
+        self._kf_ins_frames.append(frame_id)
         self.last_kf_slot = k
         self.kf_records.append((timestamp, k))
+        if self.use_mapping:
+            _, victim, vparent, vpose, vppose = self.keyframe_mapping(
+                self.map, k, self.kf_seq)
+            snap = torch.cat([torch.stack([victim, vparent]).to(vpose.dtype),
+                              vpose, vppose])
+            self._pending_culls.append(_to_pinned(snap))
+
+    def _process_pending_culls(self):
+        """Read the cull snapshots of earlier keyframe events (host
+        bookkeeping only: the eviction happened in the mapping call)."""
+        while self._pending_culls:
+            s = _landed(*self._pending_culls.pop(0))
+            v = int(s[0])
+            if v >= 0:
+                self._on_keyframe_culled(
+                    v, parent=int(s[1]), vpose=s[2:9].astype(np.float64),
+                    ppose=s[9:16].astype(np.float64))
+
+    def _cull_for_space(self) -> bool:
+        """Evict one keyframe to make room (arena-full path): the 90%
+        redundancy rule, else the most redundant non-anchor keyframe.
+        Reads the victim at once, so it waits on the card."""
+        if self.last_kf_slot < 0:
+            return False
+        self.n_forced_culls += 1
+        _, victim = self.kf_culling_forced(self.map, self.last_kf_slot)
+        v = int(victim)
+        if v < 0:
+            print("[active_orb_slam2_tpu_torch] WARNING: keyframe arena "
+                  "full and no evictable keyframe found; mapping is "
+                  "stalled (raise MapConfig.max_keyframes)",
+                  file=sys.stderr)
+            return False
+        self._on_keyframe_culled(v)
+        return True
+
+    def _on_keyframe_culled(self, victim: int, parent=None, vpose=None,
+                            ppose=None):
+        """Repoint the trajectory records of a culled keyframe onto its
+        spanning-tree parent (the reference's SaveTrajectoryTUM walks
+        ``pKF->GetParent()`` while ``pKF->isBad()``): Tcr' = Tcr Tv Tp^-1
+        keeps the replayed pose at cull time and lets it follow the
+        parent.  The parent must be live; otherwise the temporally
+        nearest live keyframe stands in, and with no live keyframe at
+        all the records become absolute poses."""
+        if victim < 0:
+            return
+        self.n_live_kf = max(self.n_live_kf - 1, 0)
+        self._live_slots.discard(victim)
+        victim_fid = self._slot_fid.pop(victim, None)
+        if parent is None or vpose is None:
+            # forced eviction: the slot cannot have been re-tenanted yet
+            parent = int(self.map.kf_parent[victim])
+            vpose = self.map.kf_pose[victim].cpu().numpy().astype(np.float64)
+        if parent < 0 or parent not in self._live_slots:
+            vfid = victim_fid if victim_fid is not None else self.frame_id
+            parent = min(self._live_slots,
+                         key=lambda s: abs(self._slot_fid.get(s, 0) - vfid)) \
+                if self._live_slots else -1
+            ppose = None
+        if parent >= 0:
+            if ppose is None:
+                ppose = self.map.kf_pose[parent].cpu().numpy().astype(
+                    np.float64)
+            t_vp = np_se3.se3_compose(vpose, np_se3.se3_inverse(ppose))
+            self.rel_records = [
+                (t, parent, np_se3.se3_compose(tcr, t_vp))
+                if ref == victim else (t, ref, tcr)
+                for (t, ref, tcr) in self.rel_records]
+            if victim_fid is not None:
+                self._add_redirect(victim, victim_fid, parent, t_vp,
+                                   self._slot_fid.get(parent))
+        else:
+            self.rel_records = [
+                (t, -1, np_se3.se3_compose(tcr, vpose))
+                if ref == victim else (t, ref, tcr)
+                for (t, ref, tcr) in self.rel_records]
+            if victim_fid is not None:
+                self._add_redirect(victim, victim_fid, -1, vpose, None)
+        self.kf_records = [r for r in self.kf_records if r[1] != victim]
+
+    def _add_redirect(self, victim, victim_fid, parent, t_vp, pfid):
+        """Record a cull redirect and path-compress the entries that point
+        at the victim's generation, so chains stay one hop."""
+        vkey = (victim, victim_fid)
+        self._cull_redirect[vkey] = (parent, t_vp, pfid, self.frame_id)
+        for key, (p, t, pf, cf) in list(self._cull_redirect.items()):
+            if key != vkey and (p, pf) == vkey:
+                self._cull_redirect[key] = (
+                    parent, np_se3.se3_compose(t, t_vp), pfid, cf)
+
+    def _prune_redirects(self):
+        """Drop redirects no in-flight frame can reference: an entry
+        (slot, fid) is dead once a newer keyframe insertion has been
+        retired past by every pending frame."""
+        if not self._cull_redirect:
+            return
+        oldest_pending = (self._pending[0]["frame_id"]
+                          if self._pending else self.frame_id)
+        cutoff = next((f for f in reversed(self._kf_ins_frames)
+                       if f < oldest_pending), None)
+        if cutoff is None:
+            return
+        for key in [k for k, v in self._cull_redirect.items()
+                    if k[1] < cutoff and v[3] < oldest_pending]:
+            del self._cull_redirect[key]
+        self._kf_ins_frames = [f for f in self._kf_ins_frames if f >= cutoff]
 
     def _upload(self, *arrays):
         """Host numpy arrays -> device tensors, without blocking the host
@@ -265,7 +445,9 @@ class System:
         self.last_kf_slot = k
         self._live_slots.add(k)
         self._slot_fid[k] = self.frame_id
+        self._kf_ins_frames.append(self.frame_id)
         self.kf_seq += 1
+        self.n_live_kf += 1
         kf_inliers = int((self.map.kf_point[k] >= 0).sum())
         self._last_kf_pose_np = self.map.kf_pose[k].cpu().numpy()
         self.kf_records.append((timestamp, k))
@@ -342,7 +524,53 @@ class System:
                 f.write(json.dumps(m) + "\n")
 
     def checkpoint(self):
-        raise _not_ported("map checkpoint", 13)
+        """The whole map as a dict of numpy arrays with the JAX package's
+        field names and dtypes (descriptors uint32)."""
+        self.flush()
+        return convert.map_to_jax_numpy(self.map)
+
+    def restore(self, ckpt: dict):
+        """Write checkpointed fields into the arena in place (the shapes
+        must be the arena's)."""
+        self.flush()
+        for f, v in ckpt.items():
+            getattr(self.map, f).copy_(convert.to_torch(v, self.device))
 
     def save_map(self, path):
-        raise _not_ported("map save / load", 13)
+        """The map arena and the host counters in one ``.npz`` file, in
+        the JAX package's layout, so either package loads it."""
+        ckpt = self.checkpoint()
+        ckpt["_host_kf_seq"] = np.int64(self.kf_seq)
+        ckpt["_host_last_kf_slot"] = np.int64(self.last_kf_slot)
+        np.savez_compressed(path, **ckpt)
+
+    def load_map(self, path):
+        """Load a map saved by either package's ``save_map``.  The host
+        records of the previous session are dropped and tracking restarts
+        LOST, so the next frame needs relocalization (ROADMAP item 14)."""
+        self.flush()
+        with np.load(path) as data:
+            self.restore({k: data[k] for k in data.files
+                          if not k.startswith("_host_")})
+            self.kf_seq = int(data["_host_kf_seq"])
+            self.last_kf_slot = int(data["_host_last_kf_slot"])
+        self.track = init_track_state(self.cfg.orb.n_features, self.device)
+        self.rel_records = []
+        self.kf_records = []
+        self.metrics = []
+        self._pending = []
+        kf_valid = self.map.kf_valid.cpu().numpy()
+        fids = self.map.kf_frame_id.cpu().numpy()
+        self.n_live_kf = int(kf_valid.sum())
+        self._live_slots = set(int(s) for s in np.flatnonzero(kf_valid))
+        self._slot_fid = {s: int(fids[s]) for s in self._live_slots}
+        self._cull_redirect = {}
+        self._kf_ins_frames = []
+        self._pending_culls = []
+        self._last_kf_pose_np = (
+            self.map.kf_pose[self.last_kf_slot].cpu().numpy()
+            if self.last_kf_slot >= 0 and kf_valid[self.last_kf_slot]
+            else None)
+        if kf_valid.any():
+            self.frame_id = int(fids[kf_valid].max()) + 1
+        self._state = LOST if self.kf_seq > 0 else NOT_INITIALIZED

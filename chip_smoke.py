@@ -13,18 +13,33 @@ Phases (each raises, and so exits nonzero, on failure):
    version on 20 seeded problems at E=1024 plus edge cases;
 3. K2, the keypoint kernel, against its plain version on the 8 levels
    of a rendered VGA frame;
-4. the slice: ``System(cfg, use_mapping=False).track_rgbd`` over 42 VGA
-   frames of the synthetic orbit (the JAX package's ``bench.py``
-   tracking-window configuration), checking every frame tracks, that
-   the main path launched both kernels, and the ATE against ground
-   truth;
-5. timing: each kernel's device time and its plain version's, after
-   the slice so that the profiler's overhead cannot reach the slice.
+4. the tracking slice: ``System(cfg, use_mapping=False).track_rgbd``
+   over 42 VGA frames of the synthetic orbit (the JAX package's
+   ``bench.py`` tracking-window configuration), checking every frame
+   tracks, that the main path launched both kernels, and the ATE
+   against ground truth;
+5. the mapping slice: ``System(cfg_map).track_rgbd`` with local mapping
+   on the same frames (``bench.py``'s full-pipeline configuration
+   without loop closing: default 512-keyframe arena, a keyframe at
+   least every 8 frames), with its launch counts, ATE, keyframe count,
+   ms/frame, peak device memory, and host syncs counted on a second run;
+6. one keyframe-mapping call on the card against the same call on the
+   CPU, from the final arena of the mapping slice, and its time;
+7. an arena-full run (8 keyframes, a keyframe every 2 frames), where
+   keyframe culling, forced eviction and slot recycling run, with its
+   launch counts, and the card-vs-CPU check on the arena of its first
+   keyframe-mapping call that culled a keyframe;
+8. the card-vs-CPU check on three aligned keyframes, where point
+   creation acts at full rate (on the orbit it creates a few points or
+   none; ROADMAP queue 3, item h);
+9. timing: each kernel's device time and its plain version's, last, so
+   that the profiler's overhead cannot reach the runs before.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launch count in the slice and its device time beside its plain
-version's; the last line is ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX.
+launch counts in the tracking slice, the mapping slice and the
+arena-full run (``launches``, ``mapping_launches``, ``full_launches``)
+and its device time beside its plain version's; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 import json
@@ -42,6 +57,18 @@ K2_ANGLE_ATOL = 1e-4         # rad
 K2_BIT_AGREE = 0.999
 N_FRAMES = 42
 WARMUP = 6
+MAP_MIN_KEYFRAMES = 5        # mapping slice: keyframes inserted
+MAP_MIN_INLIERS = 200        # mapping slice: fewest local-stage inliers
+CARD_CPU_KF_POINT_AGREE = 0.999
+CARD_CPU_POSE_ATOL = 1e-4
+CARD_CPU_POINT_ATOL_M = 1e-3
+# on the arena-full run's arenas a CPU call against itself, with the
+# keyframe poses moved by 1e-7 relative, moves single poorly constrained
+# points (depth far beyond their stereo baseline) by up to 1.4e-2 m, so
+# that check holds every point to this and the discrete results exactly
+CULL_EVENT_POINT_ATOL_M = 0.05
+FULL_MIN_CULLS = 5           # arena-full run: keyframes culled
+CREATE_MIN_POINTS = 256      # aligned keyframes: points created (cap 512)
 
 
 def log(msg):
@@ -113,17 +140,28 @@ def device_ms(fn, reps=10):
     return sum(e.time_range.end - e.time_range.start for e in ev) / 1e3 / reps
 
 
-def vga_config():
+def vga_config(kind="tracking"):
+    """VGA, 1024 features, 8 levels.  ``tracking``: ``bench.py``'s
+    tracking window; ``mapping``: its full-pipeline window without loop
+    closing (default arena); ``full``: an 8-keyframe arena with a
+    keyframe at least every 2 frames."""
     from active_orb_slam2_tpu_torch.config import (
         MapConfig, OrbConfig, SlamConfig, TrackingConfig)
     from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
     cam = CameraParams(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0,
                        width=640, height=480)
-    return SlamConfig(
-        camera=cam, orb=OrbConfig(n_features=1024, n_levels=8),
-        tracking=TrackingConfig(th_depth=8.0),
-        map=MapConfig(max_keyframes=64, max_points=16384,
-                      local_ba_keyframes=8, local_ba_points=2048))
+    tracking, arena = {
+        "tracking": (TrackingConfig(th_depth=8.0),
+                     MapConfig(max_keyframes=64, max_points=16384,
+                               local_ba_keyframes=8, local_ba_points=2048)),
+        "mapping": (TrackingConfig(th_depth=8.0, kf_max_interval=8),
+                    MapConfig()),
+        "full": (TrackingConfig(th_depth=8.0, kf_max_interval=2),
+                 MapConfig(max_keyframes=8, max_points=16384,
+                           local_ba_keyframes=8, local_ba_points=2048)),
+    }[kind]
+    return SlamConfig(camera=cam, orb=OrbConfig(n_features=1024, n_levels=8),
+                      tracking=tracking, map=arena)
 
 
 def render_frames(cam):
@@ -275,14 +313,15 @@ def phase_timing(checks):
             for name, c in checks.items()}
 
 
-def count_host_syncs(cfg, device, frames):
-    """Synchronizing CUDA calls made by a second run of the slice after
-    its warm-up frames.  The sync debug mode slows every operation, so
-    it stays out of the timed run."""
+def count_host_syncs(cfg, device, frames, use_mapping=False):
+    """Synchronizing CUDA calls made by a second run of a slice after
+    its warm-up frames, and the first few places that made them.  The
+    sync debug mode slows every operation, so it stays out of the timed
+    run."""
     import torch
     from active_orb_slam2_tpu_torch.models.system import System
-    slam = System(cfg, use_mapping=False, device=device)
-    n = 0
+    slam = System(cfg, use_mapping=use_mapping, device=device)
+    n, where = 0, []
     for i, (g, d) in enumerate(frames):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -292,10 +331,13 @@ def count_host_syncs(cfg, device, frames):
                 slam.track_rgbd(g, d, i / 30.0)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-        n += sum("called a synchronizing CUDA operation" in str(w.message)
-                 for w in caught)
+        for w in caught:
+            if "called a synchronizing CUDA operation" in str(w.message):
+                n += 1
+                if len(where) < 8:
+                    where.append(f"frame {i} {w.filename}:{w.lineno}")
     slam.flush()
-    return n
+    return n, where
 
 
 def phase_slice(device, cfg, frames, gt):
@@ -321,7 +363,7 @@ def phase_slice(device, cfg, frames, gt):
     ms_frame = (time.perf_counter() - t0) / (N_FRAMES - WARMUP) * 1e3
     launches = {"pose_opt": pose_opt_cuda.launches,
                 "keypoints": keypoint_stage_cuda.launches}
-    n_sync_warnings = count_host_syncs(cfg, device, frames)
+    n_sync_warnings, _ = count_host_syncs(cfg, device, frames)
 
     states = [m["state"] for m in slam.metrics]
     final_state = slam.state
@@ -351,6 +393,291 @@ def phase_slice(device, cfg, frames, gt):
                            f"expected {cfg.orb.n_levels * N_FRAMES}")
     if not ate <= ATE_BOUND_M:
         raise RuntimeError(f"ATE {ate:.5f} m above {ATE_BOUND_M} m")
+    return launches
+
+
+def run_frames(slam, frames, timed=False):
+    """Track every frame; returns (ms/frame over frames WARMUP.. on the
+    host clock, synchronized at both ends, or None; keyframe-mapping
+    calls made)."""
+    import torch
+    calls = []
+    run = slam.keyframe_mapping
+
+    def counted(m, k, seq):
+        calls.append(k)
+        return run(m, k, seq)
+
+    slam.keyframe_mapping = counted
+    t0 = None
+    for i, (g, d) in enumerate(frames):
+        if timed and i == WARMUP:
+            slam.flush()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        slam.track_rgbd(g, d, i / 30.0)
+    slam.flush()
+    torch.cuda.synchronize()
+    ms = None if t0 is None else \
+        (time.perf_counter() - t0) / (len(frames) - WARMUP) * 1e3
+    return ms, calls
+
+
+def trajectory_ate(slam, gt):
+    from active_orb_slam2_tpu_torch.io.trajectory import camera_centers
+    from active_orb_slam2_tpu_torch.utils.evaluate import umeyama_alignment
+    _, poses = slam.frame_trajectory()
+    if poses.shape != (N_FRAMES, 7) or not np.isfinite(poses).all():
+        raise RuntimeError(f"trajectory malformed: {poses.shape}")
+    return umeyama_alignment(camera_centers(poses), gt, fix_scale=True)[4]
+
+
+def check_all_ok(slam, what):
+    from active_orb_slam2_tpu_torch.models.system import OK
+    states = [m["state"] for m in slam.metrics]
+    if len(states) != N_FRAMES - 1 or any(s != OK for s in states) \
+            or slam.state != OK:
+        raise RuntimeError(f"{what}: not every tracked frame retired OK")
+
+
+def phase_mapping_slice(device, frames, gt):
+    """``System(cfg_map).track_rgbd`` with local mapping on."""
+    import torch
+    from active_orb_slam2_tpu_torch.kernels.keypoints import (
+        keypoint_stage_cuda)
+    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
+    from active_orb_slam2_tpu_torch.models.system import System
+    cfg = vga_config("mapping")
+    slam = System(cfg, use_mapping=True, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    keypoint_stage_cuda.launches = 0
+    pose_opt_cuda.launches = 0
+    ms_frame, calls = run_frames(slam, frames, timed=True)
+    launches = {"pose_opt": pose_opt_cuda.launches,
+                "keypoints": keypoint_stage_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    inliers = [m["n_inliers"] for m in slam.metrics]
+    ate = trajectory_ate(slam, gt)
+    n_sync, where = count_host_syncs(cfg, device, frames, use_mapping=True)
+    log(f"mapping slice: {len(slam.metrics)} tracked frames, keyframes "
+        f"inserted {slam.kf_seq}, live {slam.n_live_kf}, keyframe events "
+        f"{len(calls)}, points {int(slam.map.pt_valid.sum())}")
+    log(f"mapping slice: inliers first {inliers[0]} min {min(inliers)} "
+        f"final {inliers[-1]}, ATE {ate:.5f} m")
+    log(f"mapping slice: {ms_frame:.3f} ms/frame over frames "
+        f"{WARMUP}-{N_FRAMES - 1} (host clock, synchronized), peak device "
+        f"memory {peak / 2**20:.1f} MiB, sync warnings in steady state "
+        f"{n_sync} {where}")
+    log(f"mapping slice: launches {launches}")
+    check_all_ok(slam, "mapping slice")
+    tracked = N_FRAMES - 1
+    if launches["pose_opt"] != 2 * tracked:
+        raise RuntimeError(f"mapping slice: K1 launched "
+                           f"{launches['pose_opt']} times, expected "
+                           f"{2 * tracked}")
+    if launches["keypoints"] != cfg.orb.n_levels * N_FRAMES:
+        raise RuntimeError(f"mapping slice: K2 launched "
+                           f"{launches['keypoints']} times, expected "
+                           f"{cfg.orb.n_levels * N_FRAMES}")
+    if slam.kf_seq < MAP_MIN_KEYFRAMES or len(calls) != slam.kf_seq - 1:
+        raise RuntimeError(f"mapping slice: {slam.kf_seq} keyframes, "
+                           f"{len(calls)} mapping calls")
+    if not ate <= ATE_BOUND_M:
+        raise RuntimeError(f"mapping slice: ATE {ate:.5f} m above "
+                           f"{ATE_BOUND_M} m")
+    if min(inliers) < MAP_MIN_INLIERS:
+        raise RuntimeError(f"mapping slice: min inliers {min(inliers)}")
+    if n_sync:
+        raise RuntimeError(f"mapping slice: {n_sync} synchronizing calls "
+                           f"in the steady state: {where}")
+    return slam, launches
+
+
+def card_vs_cpu(cfg, base, k, seq, what, point_atol=CARD_CPU_POINT_ATOL_M):
+    """One keyframe-mapping call on the card and on the CPU from the same
+    arena ``base`` and slot; raises unless the victim, the masks and the
+    spanning tree are equal, ``kf_point`` agrees on 99.9% of its cells,
+    live poses within 1e-4 and valid points within ``point_atol`` m.
+    Returns (points created, victim)."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.local_mapping import (
+        build_keyframe_mapping)
+    from active_orb_slam2_tpu_torch.models.map_state import MapState
+    step = build_keyframe_mapping(cfg)
+    card = MapState(*[t.clone() for t in base])
+    t0 = time.perf_counter()
+    _, v_card, *_ = step(card, k, seq)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = MapState(*[t.to("cpu", copy=True) for t in base])
+    t0 = time.perf_counter()
+    _, v_cpu, *_ = step(cpu, k, seq)
+    cpu_s = time.perf_counter() - t0
+    c = MapState(*[t.cpu() for t in card])
+    created = int((cpu.pt_valid & ~base.pt_valid.cpu()).sum())
+    kfp_agree = float((c.kf_point == cpu.kf_point).float().mean())
+    live, pts = cpu.kf_valid, cpu.pt_valid
+    pose_err = float((c.kf_pose - cpu.kf_pose)[live].abs().max())
+    d = (c.pt_xyz - cpu.pt_xyz)[pts].abs().max(1).values
+    point_err = float(d.max()) if d.numel() else 0.0
+    log(f"{what} (slot {k}, {int(live.sum())} live keyframes, "
+        f"{int(pts.sum())} points): card vs CPU victim {int(v_card)}/"
+        f"{int(v_cpu)}, points created {created}, kf_point agreement "
+        f"{kfp_agree:.6f}, pose err {pose_err:.3e}, point err "
+        f"{point_err:.3e} m ({int((d > CARD_CPU_POINT_ATOL_M).sum())} "
+        f"points beyond {CARD_CPU_POINT_ATOL_M} m); first call "
+        f"{card_s * 1e3:.1f} ms on the card, {cpu_s * 1e3:.0f} ms on the CPU")
+    same = {f: torch.equal(getattr(c, f), getattr(cpu, f))
+            for f in ("pt_valid", "kf_valid", "kf_parent")}
+    if int(v_card) != int(v_cpu) or not all(same.values()):
+        raise RuntimeError(f"{what}: card and CPU differ: victim "
+                           f"{int(v_card)}/{int(v_cpu)}, equal {same}")
+    if kfp_agree < CARD_CPU_KF_POINT_AGREE or pose_err > CARD_CPU_POSE_ATOL \
+            or point_err > point_atol:
+        raise RuntimeError(f"{what}: card and CPU disagree")
+    return created, int(v_cpu)
+
+
+def phase_mapping_step(slam):
+    """The card-vs-CPU check on the final arena of the mapping slice, then
+    the call's time on the card (median of 5 calls, each on a fresh copy
+    of the arena, synchronized)."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.local_mapping import (
+        build_keyframe_mapping)
+    from active_orb_slam2_tpu_torch.models.map_state import MapState
+    cfg = slam.cfg
+    base = MapState(*[t.clone() for t in slam.map])
+    k, seq = slam.last_kf_slot, slam.kf_seq
+    card_vs_cpu(cfg, base, k, seq, "mapping step, final arena")
+    step = build_keyframe_mapping(cfg)
+    times = []
+    for _ in range(5):
+        m = MapState(*[t.clone() for t in base])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(m, k, seq)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times))
+    log(f"mapping step: {ms:.2f} ms per call on the card (median of 5, "
+        f"synchronized)")
+    return ms
+
+
+def aligned_map(cfg, seed):
+    """Three keyframes 0.15 m apart in an arena of ``cfg``'s shapes whose
+    feature i is the projection of 3D point i in each (descriptors equal
+    up to a few flipped bits), so the reference's epipolar gate, which
+    reads the line of feature j against feature i of the neighbour,
+    holds for the true pairs and point creation acts.  Features 0-23
+    already track points (the covisibility); the rest are free."""
+    import torch
+    from active_orb_slam2_tpu_torch.geometry.se3 import se3_apply, se3_exp
+    from active_orb_slam2_tpu_torch.models.map_state import empty_map
+    rng = np.random.default_rng(seed)
+    cam, F = cfg.camera, cfg.orb.n_features
+    m = empty_map(cfg.map, cfg.orb)
+    pw = torch.from_numpy(rng.uniform([-1.5, -1.0, 2.0], [1.5, 1.0, 6.0],
+                                      (F, 3)).astype(np.float32))
+    desc = rng.integers(0, 2 ** 32, (F, 8), dtype=np.uint32)
+    for k in range(3):
+        pose = se3_exp(torch.tensor([0, 0.02 * k, 0, 0.15 * k, 0.01 * k, 0]))
+        pc = se3_apply(pose, pw)
+        uv = torch.stack([cam.fx * pc[:, 0] / pc[:, 2] + cam.cx,
+                          cam.fy * pc[:, 1] / pc[:, 2] + cam.cy], -1)
+        m.kf_pose[k] = pose
+        m.kf_uv[k] = uv + torch.from_numpy(
+            rng.normal(0.0, 0.2, (F, 2)).astype(np.float32))
+        flip = np.bitwise_and.reduce(
+            rng.integers(0, 2 ** 32, (3, F, 8), dtype=np.uint32)) \
+            & np.uint32(0x01010101)
+        m.kf_desc[k] = torch.from_numpy((desc ^ flip).view(np.int32))
+        m.kf_level[k] = torch.from_numpy(rng.integers(0, 3, F).astype(
+            np.int32))
+        m.kf_frame_id[k] = 10 * k
+    m.kf_valid[:3] = True
+    m.kf_feat_valid[:3] = True
+    m.kf_point[:3, :24] = torch.arange(24, dtype=torch.int32)
+    m.kf_parent[1:3] = torch.tensor([0, 1], dtype=torch.int32)
+    m.pt_valid[:24] = True
+    m.pt_xyz[:24] = pw[:24]
+    return m
+
+
+def phase_create_points(device):
+    """The card-vs-CPU check on an arena where point creation acts: the
+    aligned keyframes at the arena-full run's shapes (VGA, 1024
+    features)."""
+    from active_orb_slam2_tpu_torch.models.map_state import MapState
+    cfg = vga_config("full")
+    base = MapState(*[t.to(device) for t in aligned_map(cfg, 0)])
+    created, _ = card_vs_cpu(cfg, base, 2, 3, "aligned keyframes")
+    if created < CREATE_MIN_POINTS:
+        raise RuntimeError(f"aligned keyframes: {created} points created")
+
+
+def phase_arena_full(device, frames, gt):
+    """An 8-keyframe arena filled at a keyframe every 2 frames, with its
+    launch counts; then the card-vs-CPU check on the arena of its first
+    keyframe-mapping call that culled a keyframe."""
+    import torch
+    from active_orb_slam2_tpu_torch.kernels.keypoints import (
+        keypoint_stage_cuda)
+    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
+    from active_orb_slam2_tpu_torch.models.map_state import MapState
+    from active_orb_slam2_tpu_torch.models.system import System
+    cfg = vga_config("full")
+    slam = System(cfg, use_mapping=True, device=device)
+    events = []             # (arena before the call, slot, seq, victim)
+    run = slam.keyframe_mapping
+
+    def snapshot(m, k, seq):
+        before = MapState(*[t.clone() for t in m])
+        out = run(m, k, seq)
+        events.append((before, k, seq, out[1]))
+        return out
+
+    slam.keyframe_mapping = snapshot
+    keypoint_stage_cuda.launches = 0
+    pose_opt_cuda.launches = 0
+    _, calls = run_frames(slam, frames)
+    launches = {"pose_opt": pose_opt_cuda.launches,
+                "keypoints": keypoint_stage_cuda.launches}
+    ate = trajectory_ate(slam, gt)
+    culled = slam.kf_seq - slam.n_live_kf
+    log(f"arena-full run: keyframes inserted {slam.kf_seq}, culled "
+        f"{culled}, live {slam.n_live_kf}, mapping calls {len(calls)}, "
+        f"forced evictions (each waits on the card) {slam.n_forced_culls}, "
+        f"ATE {ate:.5f} m")
+    log(f"arena-full run: launches {launches}")
+    check_all_ok(slam, "arena-full run")
+    tracked = N_FRAMES - 1
+    if launches["pose_opt"] != 2 * tracked:
+        raise RuntimeError(f"arena-full run: K1 launched "
+                           f"{launches['pose_opt']} times, expected "
+                           f"{2 * tracked}")
+    if launches["keypoints"] != cfg.orb.n_levels * N_FRAMES:
+        raise RuntimeError(f"arena-full run: K2 launched "
+                           f"{launches['keypoints']} times, expected "
+                           f"{cfg.orb.n_levels * N_FRAMES}")
+    if culled < FULL_MIN_CULLS:
+        raise RuntimeError(f"arena-full run: {culled} keyframes culled")
+    if not ate <= ATE_BOUND_M:
+        raise RuntimeError(f"arena-full run: ATE {ate:.5f} m above "
+                           f"{ATE_BOUND_M} m")
+    del slam
+    culls = [e for e in events if int(e[3]) >= 0]
+    if not culls:
+        raise RuntimeError("arena-full run: no keyframe-mapping call culled")
+    base, k, seq, _ = culls[0]
+    _, victim = card_vs_cpu(cfg, base, k, seq,
+                               "arena-full run, first culling call",
+                               point_atol=CULL_EVENT_POINT_ATOL_M)
+    if victim < 0:
+        raise RuntimeError("arena-full run: the culling call culled "
+                           "nothing when run again")
     return launches
 
 
@@ -389,17 +716,27 @@ def main():
     checks = {"pose_opt": phase_k1(device, cfg.camera),
               "keypoints": phase_k2(device, cfg, frames[0][0])}
     launches = phase_slice(device, cfg, frames, gt)
+    map_slam, map_launches = phase_mapping_slice(device, frames, gt)
+    phase_mapping_step(map_slam)
+    del map_slam
+    full_launches = phase_arena_full(device, frames, gt)
+    phase_create_points(device)
     times = phase_timing(checks)
 
     kernels = [
         dict(name="pose_opt", route="cuda",
              source="active_orb_slam2_tpu_torch/csrc/pose_opt.cu",
              replaces="active_orb_slam2_tpu/ops/pose_opt_kernel.py:227",
-             launches=launches["pose_opt"], **times["pose_opt"]),
+             launches=launches["pose_opt"],
+             mapping_launches=map_launches["pose_opt"],
+             full_launches=full_launches["pose_opt"], **times["pose_opt"]),
         dict(name="keypoints", route="cuda",
              source="active_orb_slam2_tpu_torch/csrc/keypoints.cu",
              replaces="active_orb_slam2_tpu/ops/patches.py:57",
-             launches=launches["keypoints"], **times["keypoints"]),
+             launches=launches["keypoints"],
+             mapping_launches=map_launches["keypoints"],
+             full_launches=full_launches["keypoints"],
+             **times["keypoints"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -90,19 +90,22 @@ def test_port_imports_no_jax():
     assert out.stdout.startswith("clean")
 
 
-def test_not_ported_paths_raise():
+def test_not_ported_paths_raise(tmp_path):
     _, tc = configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        tsys.System(tc)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+        tsys.System(tc, use_loop_closing=True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         tsys.System(tc, use_mapping=False, use_loop_closing=True)
-    slam = tsys.System(tc, use_mapping=False)
+    # local mapping (the default) and map saving are ported
+    slam = tsys.System(tc)
+    assert slam.use_mapping
+    slam.save_map(str(tmp_path / "empty.npz"))
     with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
         slam.track_stereo(None, None, 0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         slam.track_mono(None, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        slam.save_map("unused.npz")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        slam.activate_localization_mode()
     # a LOST state with no relocalization raises on the next frame
     slam._state = tsys.LOST
     with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
