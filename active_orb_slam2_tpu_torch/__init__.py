@@ -9,8 +9,8 @@ of the JAX package are hand-written CUDA kernels for Hopper
 which a tensor on the CPU takes.
 
 This package never imports ``jax``.  What it covers so far is the RGB-D
-tracking path with local mapping off:
-``System(cfg, use_mapping=False).track_rgbd``.
+path with local mapping, ``System(cfg).track_rgbd``, which runs on the
+CUDA card unless ``device="cpu"`` is passed.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-// Keypoint stage kernel: patch gather, IC_Angle, 7x7 blur, steered BRIEF.
+// Keypoint stage kernel: patch gather, IC_Angle, 7x7 blur, steered BRIEF,
+// for all keypoints of all pyramid levels of a frame in one launch.
 //
 // Replaces the Pallas kernel of active_orb_slam2_tpu/ops/patches.py
 // (_window_call, wrapped by extract_patches) and fuses what
@@ -8,17 +9,23 @@
 // contraction.  Here a block simply loads its 40x40 patch and gathers the
 // taps from shared memory.
 //
-// What bounds it on Hopper: one frame has ~1k keypoints over 8 levels,
-// each needing a 6.4 KB patch read and ~30 kFLOP, so the work is tiny and
-// the kernel is bound by latency (load the patch, three block barriers,
-// two small reductions), not by bandwidth or arithmetic.  The design keeps
-// everything for one keypoint in one block's shared memory (~15 KB), with
-// one block per keypoint so the ~100-220 keypoints of a level spread over
-// the SMs, and packs the 256 compares with one __ballot_sync per warp.
+// What bounds it on Hopper: one frame has ~1k keypoints, each needing a
+// 6.4 KB patch read and ~32 kFLOP, so the work is tiny (a memory bound of
+// about a microsecond) and the time goes to launches and tails: one launch
+// per level left most SMs idle behind ~5 us of launch each.  So the whole
+// frame is one launch of one block per keypoint (~8 blocks per SM, one
+// wave), and a block finds its level in a table passed by value (image
+// pointer, size, first keypoint), with no host-to-device copy.  The
+// block reads the unpadded level image with clamped indices, which equals
+// the JAX package's replicate padding, so no padded copies are made.
+// Everything for one keypoint stays in the block's shared memory (~15 KB);
+// the 256 compares are packed with one __ballot_sync per warp.
 //
-// Semantics follow the JAX package exactly:
+// Semantics follow the JAX package exactly, for a level of h x w padded
+// by pad on each side (Hp = h + 2 pad):
 //   y0 = clip(y + pad - 18, 0, Hp - 40), likewise x0;
-//   patch = bf16(img)[y0:y0+40, x0:x0+40];
+//   patch[r, c] = bf16(level[clip(y0 + r - pad, 0, h - 1),
+//                            clip(x0 + c - pad, 0, w - 1)]);
 //   moments over the radius-15 disc (x^2 + y^2 <= 226) of the 31x31
 //   window at offset 3, angle = atan2(m_y, m_x);
 //   blur = B @ patch @ B^T with the 7-tap sigma-2 Gaussian, rounded to bf16;
@@ -31,6 +38,7 @@
 
 namespace {
 
+constexpr int kMaxLevels = 16;
 constexpr int kPatch = 40;
 constexpr int kWin = 31;        // IC_Angle / BRIEF window
 constexpr int kHalf = 15;
@@ -40,6 +48,14 @@ constexpr int kOffset = 18;     // patch starts 18 px before the keypoint
 constexpr int kBins = 30;
 constexpr int kThreads = 256;   // one thread per BRIEF pair
 constexpr int kWarps = kThreads / 32;
+
+// The pyramid, by value: level l's image and size, and the index of its
+// first keypoint (keypoints of level l are start[l] .. start[l + 1] - 1).
+struct Levels {
+  const float* img[kMaxLevels];
+  int h[kMaxLevels], w[kMaxLevels], start[kMaxLevels];
+  int n;
+};
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -51,10 +67,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-keypoints_kernel(const float* __restrict__ img, int hp, int wp,
-                 const int* __restrict__ ys, const int* __restrict__ xs,
-                 int pad, const int* __restrict__ taps,
-                 const float* __restrict__ gauss,
+keypoints_kernel(const Levels lv, const int* __restrict__ ys,
+                 const int* __restrict__ xs, int pad,
+                 const int* __restrict__ taps, const float* __restrict__ gauss,
                  float* __restrict__ angle_out, int* __restrict__ desc_out) {
   __shared__ float raw[kPatch][kPatch + 1];
   __shared__ float vert[kWin][kPatch + 1];   // vertically blurred rows
@@ -64,12 +79,25 @@ keypoints_kernel(const float* __restrict__ img, int hp, int wp,
 
   const int k = blockIdx.x;
   const int tid = threadIdx.x;
-  const int y0 = min(max(ys[k] + pad - kOffset, 0), hp - kPatch);
-  const int x0 = min(max(xs[k] + pad - kOffset, 0), wp - kPatch);
+  // this keypoint's level: the last one that starts at or before k (an
+  // empty level starts where the next one does)
+  const float* img = lv.img[0];
+  int h = lv.h[0], w = lv.w[0];
+#pragma unroll
+  for (int l = 1; l < kMaxLevels; ++l) {
+    if (l < lv.n && lv.start[l] <= k) {
+      img = lv.img[l];
+      h = lv.h[l];
+      w = lv.w[l];
+    }
+  }
+  const int y0 = min(max(ys[k] + pad - kOffset, 0), h + 2 * pad - kPatch) - pad;
+  const int x0 = min(max(xs[k] + pad - kOffset, 0), w + 2 * pad - kPatch) - pad;
 
   for (int i = tid; i < kPatch * kPatch; i += kThreads) {
     const int r = i / kPatch, c = i % kPatch;
-    raw[r][c] = bf16_round(img[(size_t)(y0 + r) * wp + x0 + c]);
+    const int y = min(max(y0 + r, 0), h - 1), x = min(max(x0 + c, 0), w - 1);
+    raw[r][c] = bf16_round(img[(size_t)y * w + x]);
   }
   __syncthreads();
 
@@ -105,9 +133,9 @@ keypoints_kernel(const float* __restrict__ img, int hp, int wp,
 
   if (tid == 0) {
     float sx = 0.f, sy = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      sx += red[0][w];
-      sy += red[1][w];
+    for (int i = 0; i < kWarps; ++i) {
+      sx += red[0][i];
+      sy += red[1][i];
     }
     const float angle = atan2f(sy, sx);
     angle_out[k] = angle;
@@ -135,12 +163,30 @@ keypoints_kernel(const float* __restrict__ img, int hp, int wp,
 
 }  // namespace
 
-extern "C" int aos2_keypoints(const float* img, int hp, int wp, const int* ys,
-                              const int* xs, int k, int pad, const int* taps,
-                              const float* gauss, float* angle_out,
-                              int* desc_out, cudaStream_t stream) {
-  if (k <= 0) return 0;
-  keypoints_kernel<<<k, kThreads, 0, stream>>>(img, hp, wp, ys, xs, pad, taps,
-                                               gauss, angle_out, desc_out);
+// imgs, hs, ws, starts: host arrays of n_levels entries (device pointers
+// to the unpadded level images, their sizes, each level's first
+// keypoint); they are copied into the kernel's parameters, so nothing is
+// copied to the device.  ys, xs [k_total] int32 on the device.
+extern "C" int aos2_keypoints(const void* const* imgs, const int* hs,
+                              const int* ws, const int* starts, int n_levels,
+                              const int* ys, const int* xs, int k_total,
+                              int pad, const int* taps, const float* gauss,
+                              float* angle_out, int* desc_out,
+                              cudaStream_t stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (k_total <= 0) return 0;
+  Levels lv{};
+  lv.n = n_levels;
+  for (int l = 0; l < n_levels; ++l) {
+    if (hs[l] + 2 * pad < kPatch || ws[l] + 2 * pad < kPatch)
+      return (int)cudaErrorInvalidValue;
+    lv.img[l] = static_cast<const float*>(imgs[l]);
+    lv.h[l] = hs[l];
+    lv.w[l] = ws[l];
+    lv.start[l] = starts[l];
+  }
+  keypoints_kernel<<<k_total, kThreads, 0, stream>>>(lv, ys, xs, pad, taps,
+                                                     gauss, angle_out,
+                                                     desc_out);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface.  The library lands in
-``kernels/_build/`` (ignored by git) under a name keyed by a hash of the
-sources and flags, so a changed source rebuilds and an unchanged one is
-loaded as it is.  Nothing here runs when the module is imported.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface; the compilers run side
+by side.  A library lands in ``kernels/_build/`` (ignored by git) under
+a name keyed by a hash of its source and the flags, so a changed source
+rebuilds and an unchanged one is loaded as it is.  Nothing here runs
+when the module is imported.
 """
 
 import ctypes
@@ -13,6 +14,7 @@ import os
 import shutil
 import subprocess
 import time
+import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -23,19 +25,30 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_PI = ctypes.POINTER(ctypes.c_int)
 
-# C entry points: name -> argtypes.  Each returns cudaGetLastError().
+# C entry points of each source: name -> argtypes.  Each returns
+# cudaGetLastError() or a CUDA error code for arguments it refuses.
 SIGNATURES = {
-    # img, hp, wp, ys, xs, k, pad, taps, gauss, angle_out, desc_out, stream
-    "aos2_keypoints": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-    # pose_in, pw, obs, aux, e, fx, fy, cx, cy, bf, rounds, iters,
-    # out, mask, stream
-    "aos2_pose_opt": [_P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _I, _I,
-                      _P, _P, _P],
+    "keypoints": {
+        # imgs, hs, ws, starts (host arrays), n_levels, ys, xs, k_total,
+        # pad, taps, gauss, angle_out, desc_out, stream
+        "aos2_keypoints": [_PP, _PI, _PI, _PI, _I, _P, _P, _I, _I, _P, _P,
+                           _P, _P, _P],
+    },
+    "pose_opt": {
+        # pose0, pw, obs, level, stereo, valid, w_table, n_table, E, fx,
+        # fy, cx, cy, bf, rounds, iters, out, n_inliers, mask, stream
+        "aos2_pose_opt": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
+                          _F, _F, _I, _I, _P, _P, _P, _P],
+    },
 }
 
 _lib = None
-build_info = {}     # "seconds", "path", "ptxas" of the build this process made
+# of the build this process made: "seconds" (wall clock of the parallel
+# nvcc runs), "paths", "ptxas" (the compilers' -v reports)
+build_info = {}
 
 
 def _nvcc():
@@ -48,48 +61,59 @@ def _nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
-
-
-def library_path() -> Path:
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libaos2_kernels_{h.hexdigest()[:16]}.so"
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    return BUILD_DIR / f"libaos2_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library built from them exists."""
-    out = library_path()
-    if out.exists():
-        build_info.update(seconds=0.0, path=str(out), ptxas="(cached)")
-        return out
+def build() -> dict:
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all started together; returns {name: library path}."""
+    paths = {name: library_path(name) for name in SIGNATURES}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    build_info.update(seconds=0.0, paths={k: str(v) for k, v in paths.items()},
+                      ptxas="(cached)")
+    if not todo:
+        return paths
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(seconds=time.perf_counter() - t0, path=str(out),
-                      ptxas=proc.stderr)
-    return out
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed, reports = [], []
+    for name, (tmp, proc) in procs.items():
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu ({proc.returncode}):\n{stdout}\n{stderr}")
+        else:
+            os.replace(tmp, todo[name])
+            reports.append(stderr)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    build_info.update(seconds=time.perf_counter() - t0,
+                      ptxas="".join(reports))
+    return paths
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+def library():
+    """The C entry points of every kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        fns = {}
+        for name, path in build().items():
+            lib = ctypes.CDLL(str(path))
+            for fname, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[fname] = fn
+        _lib = types.SimpleNamespace(**fns)
     return _lib
 
 

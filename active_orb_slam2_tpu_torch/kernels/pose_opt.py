@@ -9,33 +9,50 @@ import torch
 
 from active_orb_slam2_tpu_torch.kernels import build
 
+# one block of 256 threads, up to 8 edges each (csrc/pose_opt.cu)
+MAX_EDGES = 2048
 
-def pose_opt_cuda(cam, pose_in, pw_t, obs_t, aux, rounds: int, iters: int):
-    """Run the whole optimization on the card.
 
-    pose_in [8] (pose + unused), pw_t / obs_t [3, E], aux [4, E]
-    (w_info, stereo flag, valid, chi2 threshold), all float32.
-    Returns (out [8]: pose and inlier chi2, mask [E]: 1.0 for inliers).
+def pose_opt_cuda(cam, pose0, pw, obs_uvr, level, has_stereo, valid, w_table,
+                  rounds: int, iters: int):
+    """Run the whole optimization on the card, on the tracking step's
+    tensors as they are: pose0 [7], pw / obs_uvr [E, 3] float32, level
+    [E] int32, has_stereo / valid [E] bool; ``w_table`` [n] float32 is
+    the information weight of levels 0..n-1 (levels beyond are clamped).
+
+    Returns (out [8]: pose and inlier chi2, n_inliers int32 [],
+    inliers bool [E]).
     """
-    E = pw_t.shape[1]
-    build.require(pose_in, "pose_in", torch.float32, (8,))
-    build.require(pw_t, "pw", torch.float32, (3, E))
-    build.require(obs_t, "obs", torch.float32, (3, E))
-    build.require(aux, "aux", torch.float32, (4, E))
-    for t in (pw_t, obs_t, aux):
-        if t.device != pose_in.device:
+    E = pw.shape[0]
+    build.require(pose0, "pose0", torch.float32, (7,))
+    build.require(pw, "pw", torch.float32, (E, 3))
+    build.require(obs_uvr, "obs_uvr", torch.float32, (E, 3))
+    build.require(level, "level", torch.int32, (E,))
+    build.require(has_stereo, "has_stereo", torch.bool, (E,))
+    build.require(valid, "valid", torch.bool, (E,))
+    build.require(w_table, "w_table", torch.float32)
+    for t in (pw, obs_uvr, level, has_stereo, valid, w_table):
+        if t.device != pose0.device:
             raise ValueError("pose_opt_cuda: tensors on different devices")
-    if E == 0:
-        raise ValueError("pose_opt_cuda: no edges")
-    out = torch.empty(8, dtype=torch.float32, device=pose_in.device)
-    mask = torch.empty(E, dtype=torch.float32, device=pose_in.device)
+    if not 1 <= E <= MAX_EDGES:
+        raise ValueError(f"pose_opt_cuda: {E} edges, expected 1..{MAX_EDGES}")
+    if w_table.dim() != 1 or w_table.numel() == 0:
+        raise ValueError("pose_opt_cuda: w_table must be a nonempty vector")
+    if rounds < 1 or iters < 1:
+        raise ValueError("pose_opt_cuda: rounds and iters must be >= 1")
+    dev = pose0.device
+    out = torch.empty(8, dtype=torch.float32, device=dev)
+    n_inliers = torch.empty((), dtype=torch.int32, device=dev)
+    inliers = torch.empty(E, dtype=torch.bool, device=dev)
     err = build.library().aos2_pose_opt(
-        pose_in.data_ptr(), pw_t.data_ptr(), obs_t.data_ptr(), aux.data_ptr(),
-        E, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, rounds, iters,
-        out.data_ptr(), mask.data_ptr(), build.stream_ptr(pose_in.device))
+        pose0.data_ptr(), pw.data_ptr(), obs_uvr.data_ptr(), level.data_ptr(),
+        has_stereo.data_ptr(), valid.data_ptr(), w_table.data_ptr(),
+        w_table.numel(), E, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, rounds,
+        iters, out.data_ptr(), n_inliers.data_ptr(),
+        inliers.data_ptr(), build.stream_ptr(dev))
     build.check(err, "aos2_pose_opt")
     pose_opt_cuda.launches += 1
-    return out, mask
+    return out, n_inliers, inliers
 
 
 pose_opt_cuda.launches = 0

@@ -79,15 +79,24 @@ def _landed(host, event):
 
 
 class System:
-    """RGB-D SLAM engine: tracking with local mapping at each keyframe."""
+    """RGB-D SLAM engine: tracking with local mapping at each keyframe.
+
+    Runs on the CUDA card (``device``, by default ``cuda``); a CPU run
+    passes ``device="cpu"``.
+    """
 
     def __init__(self, cfg: SlamConfig, use_mapping: bool = True,
                  use_loop_closing: bool = False, pipeline_depth: int = 6,
-                 retire_batch: int = 4, device="cpu"):
+                 retire_batch: int = 4, device=torch.device("cuda")):
         if use_loop_closing:
             raise _not_ported("loop closing", 15)
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "System runs on the CUDA card unless told otherwise, and "
+                "this machine has none; pass device=\"cpu\" to run on the "
+                "CPU")
         self.make_rgbd = build_frame_pipeline(cfg)
         self.track_step = build_track_step(cfg)
         self.create_kf = build_create_keyframe(cfg)

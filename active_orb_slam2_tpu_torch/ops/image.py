@@ -1,4 +1,4 @@
-"""Image primitives: bilinear resize, edge-replicate padding.
+"""Image primitives: bilinear resize.
 
 Port of ``active_orb_slam2_tpu/ops/image.py``.  The resize keeps the JAX
 package's banded weight matrices and runs them as two float32 matrix
@@ -11,7 +11,6 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,8 +52,3 @@ def resize_bilinear(img, out_h: int, out_w: int):
     wy = _resize_weights_on(h, out_h, img.device)
     wx = _resize_weights_on(w, out_w, img.device)
     return (wy.T @ img) @ wx
-
-
-def pad_image(img, pad: int):
-    """Edge-replicate pad on both axes."""
-    return F.pad(img[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]

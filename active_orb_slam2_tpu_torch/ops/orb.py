@@ -9,8 +9,8 @@ function instead: the ``[30, 961, 512]`` one-hot tap tensor becomes a
 ``[30, 512]`` flat-index table built from the same rotation and
 rounding, and the taps are gathered directly.  On the card the whole
 keypoint stage (patch gather, IC_Angle, blur, steered BRIEF, packing)
-is one hand-written kernel (``kernels/keypoints.py``); on the CPU it is
-:func:`keypoint_stage_torch`.
+is one hand-written kernel launched once per frame for all levels
+(``kernels/keypoints.py``); on the CPU it is :func:`keypoint_stage_torch`.
 
 Descriptors are int32 with the same bits as the JAX package's uint32.
 """
@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from active_orb_slam2_tpu_torch.config import OrbConfig
 from active_orb_slam2_tpu_torch.ops.fast import bf16_round, fast_score_map, nms3x3
 from active_orb_slam2_tpu_torch.ops.image import (
-    gaussian_kernel1d, pad_image, resize_bilinear)
+    gaussian_kernel1d, resize_bilinear)
 from active_orb_slam2_tpu_torch.ops.patches import PATCH, extract_patches
 from active_orb_slam2_tpu_torch.ops.topk import stable_topk
 
@@ -203,15 +203,14 @@ def pack_bits(bits):
     return words.to(torch.int32)
 
 
-def keypoint_stage_torch(img_padded, ys, xs, pad: int):
-    """Plain PyTorch keypoint stage: patch gather -> IC_Angle moments ->
-    7x7 blur -> bf16 rounding -> steered BRIEF gather -> packing.
+def describe_patches(raw):
+    """IC_Angle moments -> 7x7 blur -> bf16 rounding -> steered BRIEF
+    gather -> packing, for raw patches [K, 40, 40].
 
     Returns (angles [K] float32, desc [K, 8] int32).
     """
-    raw = extract_patches(img_padded, ys, xs, pad)          # [K, 40, 40]
     K = raw.shape[0]
-    G, B, taps, _ = device_constants(img_padded.device)
+    G, B, taps, _ = device_constants(raw.device)
     m = raw.reshape(K, -1) @ G                              # [K, 2]
     angles = torch.atan2(m[:, 1], m[:, 0])
     blurred = (B @ raw) @ B.T                               # [K, 31, 31]
@@ -220,45 +219,71 @@ def keypoint_stage_torch(img_padded, ys, xs, pad: int):
     return angles, pack_bits(vals[:, :256] < vals[:, 256:])
 
 
-def keypoint_stage(img_padded, ys, xs, pad: int):
-    """IC_Angle + steered BRIEF for all keypoints of one level.
+def keypoint_stage_torch(levels, ys, xs, counts, pad: int):
+    """Plain PyTorch keypoint stage for all levels of a frame: the
+    clamped patch gather of each level, then :func:`describe_patches`.
 
-    A CUDA tensor goes through the hand-written kernel; a CPU tensor
-    through :func:`keypoint_stage_torch`.
+    ``levels`` are the unpadded level images; ys / xs [K] hold level 0's
+    ``counts[0]`` keypoints, then level 1's, and so on.
     """
-    if img_padded.is_cuda:
+    parts, start = [], 0
+    for img, n in zip(levels, counts):
+        parts.append(extract_patches(img, ys[start:start + n],
+                                     xs[start:start + n], pad))
+        start += n
+    return describe_patches(torch.cat(parts))
+
+
+def keypoint_stage(levels, ys, xs, counts, pad: int):
+    """IC_Angle + steered BRIEF for all keypoints of all levels.
+
+    CUDA tensors go through the hand-written kernel in one launch; CPU
+    tensors through :func:`keypoint_stage_torch`.
+    """
+    if ys.is_cuda:
         from active_orb_slam2_tpu_torch.kernels.keypoints import (
             keypoint_stage_cuda)
-        _, _, taps, gauss = device_constants(img_padded.device)
-        return keypoint_stage_cuda(img_padded, ys, xs, pad, taps, gauss)
-    return keypoint_stage_torch(img_padded, ys, xs, pad)
+        _, _, taps, gauss = device_constants(ys.device)
+        return keypoint_stage_cuda(levels, ys, xs, counts, pad, taps, gauss)
+    return keypoint_stage_torch(levels, ys, xs, counts, pad)
+
+
+@functools.lru_cache(maxsize=None)
+def level_columns(n_per_level: tuple, scale_factor: float,
+                  device: torch.device):
+    """(level [N] int32, scale [N] float32) of the N feature slots, made
+    once per device; scale is float32(scale_factor ** level), the factor
+    the JAX package multiplies each level's coordinates by."""
+    lv = np.repeat(np.arange(len(n_per_level)), n_per_level)
+    scale = np.array([scale_factor ** int(l) for l in lv], np.float32)
+    return (torch.from_numpy(lv.astype(np.int32)).to(device),
+            torch.from_numpy(scale).to(device))
 
 
 def build_extractor(cfg: OrbConfig, height: int, width: int):
     """Return ``image [H, W] float32 -> OrbFeatures`` for this size."""
     sizes = level_sizes(height, width, cfg)
     n_per_level = features_per_level(cfg)
-    pad = cfg.pad
 
     def extract(img):
-        outs = []
-        for lvl in range(cfg.n_levels):
-            h, w = sizes[lvl]
+        levels, ys, xs, resp = [], [], [], []
+        for (h, w), n_l in zip(sizes, n_per_level):
             # each level is resized straight from level 0, as in the
             # JAX package
             level_img = resize_bilinear(img, h, w)
             score = threshold_fallback(nms3x3(fast_score_map(level_img)), cfg)
-            n_l = n_per_level[lvl]
-            ys, xs, resp = detect_level(score, n_l, cfg)
-            ang, desc = keypoint_stage(pad_image(level_img, pad), ys, xs, pad)
-            scale = cfg.scale_factor ** lvl
-            uv = torch.stack([xs.to(torch.float32) * scale,
-                              ys.to(torch.float32) * scale], dim=-1)
-            outs.append(OrbFeatures(
-                uv=uv,
-                level=torch.full((n_l,), lvl, dtype=torch.int32,
-                                 device=img.device),
-                angle=ang, response=resp, desc=desc, valid=resp > 0.0))
-        return OrbFeatures(*[torch.cat(parts, dim=0) for parts in zip(*outs)])
+            y, x, r = detect_level(score, n_l, cfg)
+            levels.append(level_img)
+            ys.append(y)
+            xs.append(x)
+            resp.append(r)
+        ys, xs, resp = torch.cat(ys), torch.cat(xs), torch.cat(resp)
+        ang, desc = keypoint_stage(levels, ys, xs, n_per_level, cfg.pad)
+        level, scale = level_columns(tuple(n_per_level), cfg.scale_factor,
+                                     img.device)
+        uv = torch.stack([xs.to(torch.float32) * scale,
+                          ys.to(torch.float32) * scale], dim=-1)
+        return OrbFeatures(uv=uv, level=level, angle=ang, response=resp,
+                           desc=desc, valid=resp > 0.0)
 
     return extract

@@ -2,11 +2,14 @@
 kernel of ``active_orb_slam2_tpu/ops/patches.py`` computes.
 
 The TPU kernel DMAs a tile-aligned 56-row window around each keypoint
-and cuts the 40x40 patch out of it with two bf16 one-hot matmuls.  Its
-net function is a slice of the bf16-rounded level image:
+of the replicate-padded level image and cuts the 40x40 patch out of it
+with two bf16 one-hot matmuls.  Its net function is a slice of the
+bf16-rounded padded level image, and replicate padding is a clamp of
+the indices, so the port reads the unpadded level:
 
-  patch[k] = bf16(img)[y0:y0+40, x0:x0+40],
-  y0 = clip(y + pad - 18, 0, Hp - 40), and likewise for x.
+  patch[k, r, c] = bf16(level)[clip(y0 + r - pad, 0, h - 1),
+                               clip(x0 + c - pad, 0, w - 1)],
+  y0 = clip(y + pad - 18, 0, h + 2 pad - 40), and likewise for x.
 
 On the card this gather is fused into the keypoint kernel
 (``csrc/keypoints.cu``); this function is the plain version that the
@@ -21,17 +24,23 @@ PATCH = 40      # raw patch side: 31 (BRIEF/IC) + 2*3 (blur halo) -> 40
 PATCH_OFFSET = 18   # patch covers offsets [-18, +21] around the keypoint
 
 
-def extract_patches(img_padded, ys, xs, pad: int):
+def patch_index(v, n: int, pad: int):
+    """[K, 40] clamped indices along one axis of length ``n`` of the
+    patches around coordinates ``v`` [K]."""
+    v0 = torch.clamp(v.long() + (pad - PATCH_OFFSET), 0,
+                     n + 2 * pad - PATCH) - pad
+    return torch.clamp(v0[:, None] + torch.arange(PATCH, device=v.device),
+                       0, n - 1)
+
+
+def extract_patches(level, ys, xs, pad: int):
     """[K, 40, 40] bf16-rounded patches around (ys, xs).
 
-    ``img_padded`` [Hp, Wp] float32 is the level image with ``pad``
-    pixels of border; ys/xs [K] int are keypoints in unpadded
-    coordinates.
+    ``level`` [h, w] float32 is the unpadded level image; ys/xs [K] int
+    are keypoints in its coordinates; the patch window is clipped to the
+    level padded by ``pad`` replicated pixels on each side.
     """
-    hp, wp = img_padded.shape
-    y0 = torch.clamp(ys.long() + (pad - PATCH_OFFSET), 0, hp - PATCH)
-    x0 = torch.clamp(xs.long() + (pad - PATCH_OFFSET), 0, wp - PATCH)
-    ar = torch.arange(PATCH, device=img_padded.device)
-    rows = (y0[:, None] + ar)[:, :, None]
-    cols = (x0[:, None] + ar)[:, None, :]
-    return bf16_round(img_padded)[rows, cols]
+    h, w = level.shape
+    rows = patch_index(ys, h, pad)[:, :, None]
+    cols = patch_index(xs, w, pad)[:, None, :]
+    return bf16_round(level)[rows, cols]

@@ -11,6 +11,8 @@ acceptance ``sum(c2 * inl * zpos) <= best``, which differs slightly from
 ``models/optimizer.py::pose_optimization``.
 """
 
+import functools
+
 import torch
 
 from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
@@ -18,6 +20,16 @@ from active_orb_slam2_tpu_torch.geometry.se3 import quat_mul, quat_rotate
 from active_orb_slam2_tpu_torch.models.optimizer import (
     CHI2_MONO, CHI2_STEREO, PoseOptResult, damped, edge_terms, inv_sigma2,
     solve_spd)
+
+W_LEVELS = 32       # levels in the kernel's information table
+
+
+@functools.lru_cache(maxsize=None)
+def w_info_table(device: torch.device):
+    """``inv_sigma2`` of levels 0..31, made once per device by the same
+    operation the plain version applies to each edge's level, so the
+    kernel's weights have the plain version's bits on that device."""
+    return inv_sigma2(torch.arange(W_LEVELS, dtype=torch.int32, device=device))
 
 
 def _retract(pose, step):
@@ -94,34 +106,19 @@ def pose_optimization_fused_torch(cam: CameraParams, pose0, pw, obs_uvr,
                          chi2=(c2f * inl).sum())
 
 
-def kernel_inputs(pose0, pw, obs_uvr, level, has_stereo, valid):
-    """The kernel's inputs in the Pallas kernel's layout: pose_in [8],
-    pw [3, E], obs [3, E], aux [4, E] (w_info, stereo flag, valid, chi2
-    threshold), all float32."""
-    pose_in = torch.cat([pose0.to(torch.float32),
-                         pose0.new_zeros(1, dtype=torch.float32)])
-    aux = torch.stack([
-        inv_sigma2(level), has_stereo.to(torch.float32),
-        valid.to(torch.float32),
-        torch.where(has_stereo, CHI2_STEREO, CHI2_MONO).to(torch.float32)])
-    return (pose_in, pw.T.to(torch.float32).contiguous(),
-            obs_uvr.T.to(torch.float32).contiguous(), aux)
-
-
 def pose_optimization_fused(cam: CameraParams, pose0, pw, obs_uvr, level,
                             has_stereo, valid, rounds: int = 4,
                             iters_per_round: int = 10) -> PoseOptResult:
     """Motion-only BA in one launch: CUDA tensors run the hand-written
-    kernel, CPU tensors :func:`pose_optimization_fused_torch`."""
+    kernel on the tensors as they are, CPU tensors
+    :func:`pose_optimization_fused_torch`."""
     if not pw.is_cuda:
         return pose_optimization_fused_torch(
             cam, pose0, pw, obs_uvr, level, has_stereo, valid, rounds,
             iters_per_round)
     from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
-    out, mask = pose_opt_cuda(
-        cam, *kernel_inputs(pose0, pw, obs_uvr, level, has_stereo, valid),
-        rounds, iters_per_round)
-    inliers = mask > 0.5
-    return PoseOptResult(pose=out[:7], inliers=inliers,
-                         n_inliers=inliers.sum().to(torch.int32),
+    out, n_inliers, inliers = pose_opt_cuda(
+        cam, pose0, pw, obs_uvr, level, has_stereo, valid,
+        w_info_table(pw.device), rounds, iters_per_round)
+    return PoseOptResult(pose=out[:7], inliers=inliers, n_inliers=n_inliers,
                          chi2=out[7])

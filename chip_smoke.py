@@ -10,9 +10,13 @@ Phases (each raises, and so exits nonzero, on failure):
 1. device and build: requires CUDA, prints the card's name and power
    limit, builds the kernels from ``active_orb_slam2_tpu_torch/csrc``;
 2. K1, the fused pose optimization kernel, against its plain PyTorch
-   version on 20 seeded problems at E=1024 plus edge cases;
-3. K2, the keypoint kernel, against its plain version on the 8 levels
-   of a rendered VGA frame;
+   version on 20 seeded problems at E=1024, one each at E=128, 300 and
+   2000 (one for each edges-per-thread instance), E=1 from the true
+   pose, and the all-invalid and points-behind cases, each run twice
+   (the rerun must give identical bits);
+3. K2, the keypoint kernel, against its plain version on all 8 levels of
+   a rendered VGA frame in one launch, and on keypoints within 18 px of
+   every border of each level, with one level empty;
 4. the tracking slice: ``System(cfg, use_mapping=False).track_rgbd``
    over 42 VGA frames of the synthetic orbit (the JAX package's
    ``bench.py`` tracking-window configuration), checking every frame
@@ -33,13 +37,18 @@ Phases (each raises, and so exits nonzero, on failure):
    creation acts at full rate (on the orbit it creates a few points or
    none; ROADMAP queue 3, item h);
 9. timing: each kernel's device time and its plain version's, last, so
-   that the profiler's overhead cannot reach the runs before.
+   that the profiler's overhead cannot reach the runs before; K1 also at
+   E=128 (the fixed cost of its 44 passes) and at E=2000.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launch counts in the tracking slice, the mapping slice and the
-arena-full run (``launches``, ``mapping_launches``, ``full_launches``)
-and its device time beside its plain version's; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+arena-full run (``launches``, ``mapping_launches``, ``full_launches``),
+its device time (``ms``) beside its plain version's (``plain_ms``), its
+bound (``bound_ms``: the larger of its FLOP over the float32 peak and
+its bytes over the memory rate, from this run's inputs; ``bound_by``)
+and ``library_ms`` (null: no single PyTorch call computes either
+function); the last line is ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 import json
@@ -69,6 +78,24 @@ CARD_CPU_POINT_ATOL_M = 1e-3
 CULL_EVENT_POINT_ATOL_M = 0.05
 FULL_MIN_CULLS = 5           # arena-full run: keyframes culled
 CREATE_MIN_POINTS = 256      # aligned keyframes: points created (cap 512)
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
+# tensor cores, and HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+# K1 FLOP per edge, counted from csrc/pose_opt.cu: a Gauss-Newton pass
+# rotates and projects (47), forms chi2, the gate and the Huber weight
+# (15) and d r / d pc (12), and adds the normal-equation terms in the
+# form H_tt = M, H_rt = P M, H_rr = -P M P, b (M 18, P M 23, H_rr 18,
+# 20 H sums, b 27); an acceptance pass projects and forms chi2 (56).
+# The serial 6x6 solve and retract of each pass (~400) count once.
+K1_FLOP_GN_EDGE = 180
+K1_FLOP_CHI2_EDGE = 56
+K1_FLOP_SOLVE = 400
+K1_BYTES_EDGE = 12 + 12 + 4 + 1 + 1 + 1     # pw, obs, level, flags; mask
+# K2 FLOP per keypoint, counted from csrc/keypoints.cu: moments over the
+# 717-pixel disc (4 each), the 31x37 vertical and 31x31 horizontal 7-tap
+# blurs (14 each), 256 compares
+K2_FLOP_KEYPOINT = 717 * 4 + (31 * 37 + 31 * 31) * 14 + 256
 
 
 def log(msg):
@@ -179,7 +206,12 @@ def render_frames(cam):
 
 def k1_problem(rng, cam, E, device, kind="noisy"):
     """One seeded motion-only BA problem: pw [E, 3], obs [E, 3] with
-    noise and 10% gross outliers, mixed mono/stereo, levels 0-7."""
+    noise and 10% gross outliers, mixed mono/stereo, levels 0-7.
+    ``exact``: noise-free observations and the true pose as the start
+    (for E=1, whose 3 residuals leave 6 unknowns underdetermined, so
+    that from a noisy start the damped steps amplify float rounding:
+    two correct implementations, the JAX package and the plain version,
+    differ there by up to 1e-3 on the CPU)."""
     import torch
     from active_orb_slam2_tpu_torch.geometry.se3 import quat_to_mat
     pw = rng.uniform([-2.0, -1.5, 2.0], [2.0, 1.5, 8.0], (E, 3))
@@ -195,13 +227,18 @@ def k1_problem(rng, cam, E, device, kind="noisy"):
     z = pc[:, 2]
     u = cam.fx * pc[:, 0] / z + cam.cx
     v = cam.fy * pc[:, 1] / z + cam.cy
-    obs = np.stack([u, v, u - cam.bf / z], -1) + rng.normal(0, 0.5, (E, 3))
-    out = rng.random(E) < 0.1
-    obs[out] += rng.uniform(20, 80, (int(out.sum()), 3))
+    obs = np.stack([u, v, u - cam.bf / z], -1)
+    exact = kind == "exact"
+    if not exact:
+        obs += rng.normal(0, 0.5, (E, 3))
+        out = rng.random(E) < 0.1
+        obs[out] += rng.uniform(20, 80, (int(out.sum()), 3))
     level = rng.integers(0, 8, E)
     stereo = rng.random(E) < 0.5
-    valid = np.zeros(E, bool) if kind == "invalid" else rng.random(E) < 0.95
-    pose0 = np.concatenate([q_true, t_true + rng.normal(0, 0.03, 3)])
+    valid = np.zeros(E, bool) if kind == "invalid" else \
+        (rng.random(E) < 0.95) | exact
+    pose0 = np.concatenate([q_true, t_true if exact
+                            else t_true + rng.normal(0, 0.03, 3)])
 
     def t(a, dtype):
         return torch.tensor(a, dtype=dtype, device=device)
@@ -210,106 +247,225 @@ def k1_problem(rng, cam, E, device, kind="noisy"):
             t(stereo, torch.bool), t(valid, torch.bool))
 
 
+def k1_bound(args, rounds=4, iters=10):
+    """(bound ms, what sets it) of one K1 call on ``args``: its FLOP on
+    the valid edges over the float32 peak against its bytes (each input
+    read once, each output written once) over the memory rate."""
+    E, n_valid = args[1].shape[0], int(args[5].sum())
+    flops = n_valid * (rounds * iters * K1_FLOP_GN_EDGE
+                       + rounds * K1_FLOP_CHI2_EDGE) \
+        + rounds * (iters + 1) * K1_FLOP_SOLVE
+    nbytes = E * K1_BYTES_EDGE + 4 * (7 + 32 + 8 + 1)
+    return bound(flops, nbytes)
+
+
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_k1(device, cam):
     import torch
     from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
     from active_orb_slam2_tpu_torch.ops.pose_opt_kernel import (
-        kernel_inputs, pose_optimization_fused, pose_optimization_fused_torch)
+        pose_optimization_fused, pose_optimization_fused_torch,
+        w_info_table)
     rng = np.random.default_rng(1)
-    kinds = ["noisy"] * 20 + ["invalid", "behind"]
+    cases = [("noisy", 1024)] * 20 + [("exact", 1), ("noisy", 128),
+                                      ("noisy", 300), ("noisy", 2000),
+                                      ("invalid", 1024), ("behind", 1024)]
     worst_pose, worst_agree = 0.0, 1.0
-    for i, kind in enumerate(kinds):
-        args = k1_problem(rng, cam, 1024, device, kind)
+    for i, (kind, E) in enumerate(cases):
+        args = k1_problem(rng, cam, E, device, kind)
         res_k = pose_optimization_fused(cam, *args)
+        rerun = pose_optimization_fused(cam, *args)
         res_p = pose_optimization_fused_torch(cam, *args)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(res_k, rerun))
         err = float((res_k.pose - res_p.pose).abs().max())
         agree = float((res_k.inliers == res_p.inliers).float().mean())
-        if not torch.isfinite(res_k.pose).all():
-            raise RuntimeError(f"K1 problem {i} ({kind}): non-finite pose")
-        log(f"  K1 problem {i:2d} {kind:7s}: pose err {err:.3e} "
+        log(f"  K1 problem {i:2d} {kind:7s} E={E:4d}: pose err {err:.3e} "
             f"inlier agreement {agree:.4f} inliers {int(res_k.n_inliers)}"
             f"/{int(res_p.n_inliers)} chi2 {float(res_k.chi2):.3f}"
-            f"/{float(res_p.chi2):.3f}")
+            f"/{float(res_p.chi2):.3f} rerun identical {same}")
+        if not torch.isfinite(res_k.pose).all():
+            raise RuntimeError(f"K1 problem {i} ({kind}): non-finite pose")
+        if not same:
+            raise RuntimeError(f"K1 problem {i} ({kind}): a rerun on the "
+                               f"same inputs gave other bits")
+        if res_k.inliers.dtype != torch.bool \
+                or res_k.n_inliers.dtype != torch.int32 \
+                or int(res_k.n_inliers) != int(res_k.inliers.sum()):
+            raise RuntimeError(f"K1 problem {i} ({kind}): malformed result")
         worst_pose = max(worst_pose, err)
         worst_agree = min(worst_agree, agree)
     if worst_pose > K1_POSE_ATOL or worst_agree < K1_INLIER_AGREE:
         raise RuntimeError(f"K1 disagrees with its plain version: pose err "
                            f"{worst_pose:.3e}, inlier agreement {worst_agree}")
     log(f"K1 ok: max pose err {worst_pose:.3e}, min inlier agreement "
-        f"{worst_agree:.4f}")
-    args = k1_problem(np.random.default_rng(2), cam, 1024, device)
-    inputs = kernel_inputs(*args)
+        f"{worst_agree:.4f}, every rerun bit-identical")
+    trng = np.random.default_rng(2)
+    args = k1_problem(trng, cam, 1024, device)
+    table = w_info_table(device)
+
+    def raw(a):
+        return lambda: pose_opt_cuda(cam, *a, table, 4, 10)
+    # E=128: the fixed cost of the 44 passes
+    variants = {"ms_e128": raw(k1_problem(trng, cam, 128, device)),
+                "ms_e2000": raw(k1_problem(trng, cam, 2000, device))}
+    bound_ms, bound_by = k1_bound(args)
     return {"max_abs_err": worst_pose, "what": "E=1024",
-            "kernel": lambda: pose_opt_cuda(cam, *inputs, 4, 10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel": raw(args), "variants": variants,
             "call": lambda: pose_optimization_fused(cam, *args),
             "plain": lambda: pose_optimization_fused_torch(cam, *args)}
 
 
-def phase_k2(device, cfg, gray):
+def detect_frame(device, cfg, gray):
+    """The level images of ``gray`` and their detected keypoints, as the
+    extractor makes them: (levels, ys, xs, counts)."""
+    import torch
+    from active_orb_slam2_tpu_torch.ops import orb
+    from active_orb_slam2_tpu_torch.ops.fast import fast_score_map, nms3x3
+    from active_orb_slam2_tpu_torch.ops.image import resize_bilinear
+    ocfg = cfg.orb
+    img = torch.tensor(gray, dtype=torch.float32, device=device)
+    levels, ys, xs = [], [], []
+    counts = orb.features_per_level(ocfg)
+    for (h, w), n in zip(orb.level_sizes(*gray.shape, ocfg), counts):
+        li = resize_bilinear(img, h, w)
+        score = orb.threshold_fallback(nms3x3(fast_score_map(li)), ocfg)
+        y, x, _ = orb.detect_level(score, n, ocfg)
+        levels.append(li)
+        ys.append(y)
+        xs.append(x)
+    return levels, torch.cat(ys), torch.cat(xs), counts
+
+
+def border_keypoints(levels, device, seed=3, empty=3):
+    """Keypoints within 18 px of every border of each level (both ends of
+    each axis, and the corners), with level ``empty`` left without any:
+    (ys, xs, counts)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    ys, xs, counts = [], [], []
+    for lvl, img in enumerate(levels):
+        if lvl == empty:
+            counts.append(0)
+            continue
+        h, w = img.shape
+        near = [np.concatenate([rng.integers(0, 18, 8),
+                                rng.integers(n - 18, n, 8)]) for n in (h, w)]
+        y = np.concatenate([near[0], rng.integers(0, h, 16), [0, 0, h - 1,
+                                                              h - 1]])
+        x = np.concatenate([rng.integers(0, w, 16), near[1], [0, w - 1, 0,
+                                                              w - 1]])
+        ys.append(y)
+        xs.append(x)
+        counts.append(len(y))
+
+    def t(a):
+        return torch.tensor(np.concatenate(a), dtype=torch.int32,
+                            device=device)
+    return t(ys), t(xs), counts
+
+
+def k2_bound(levels, ys, xs, counts, pad):
+    """(bound ms, what sets it) of one K2 launch: its FLOP over the
+    float32 peak against its bytes over the memory rate, counting the
+    level pixels that the patches cover (each read once), the keypoints,
+    the tap table and the outputs."""
+    import torch
+    from active_orb_slam2_tpu_torch.ops.patches import patch_index
+    pixels, start = 0, 0
+    for img, n in zip(levels, counts):
+        h, w = img.shape
+        rows = patch_index(ys[start:start + n], h, pad)
+        cols = patch_index(xs[start:start + n], w, pad)
+        flat = rows[:, :, None] * w + cols[:, None, :]
+        pixels += int(torch.unique(flat).numel())
+        start += n
+    K = ys.shape[0]
+    nbytes = 4 * pixels + 8 * K + 4 * (30 * 512 + 7) + 4 * K + 32 * K
+    return bound(K * K2_FLOP_KEYPOINT, nbytes)
+
+
+def k2_compare(what, levels, ys, xs, counts, pad, taps, gauss):
+    """K2 against its plain version on one set of keypoints; returns (max
+    angle error, equal bits, all bits)."""
     import torch
     from active_orb_slam2_tpu_torch.kernels.keypoints import (
         keypoint_stage_cuda)
     from active_orb_slam2_tpu_torch.ops import orb
-    from active_orb_slam2_tpu_torch.ops.fast import fast_score_map, nms3x3
-    from active_orb_slam2_tpu_torch.ops.image import pad_image, resize_bilinear
-    ocfg = cfg.orb
-    img = torch.tensor(gray, dtype=torch.float32, device=device)
-    sizes = orb.level_sizes(*gray.shape, ocfg)
-    n_per = orb.features_per_level(ocfg)
+    ang_k, desc_k = keypoint_stage_cuda(levels, ys, xs, counts, pad, taps,
+                                        gauss)
+    ang_p, desc_p = orb.keypoint_stage_torch(levels, ys, xs, counts, pad)
+    torch.cuda.synchronize()
+    d = torch.remainder(ang_k - ang_p + np.pi, 2 * np.pi) - np.pi
+    err = float(d.abs().max())
+    diff = desc_k.cpu().numpy().view(np.uint32) \
+        ^ desc_p.cpu().numpy().view(np.uint32)
+    nbad = int(np.unpackbits(diff.view(np.uint8)).sum())
+    log(f"  K2 {what}: K={ys.shape[0]} over levels {list(counts)}, angle err "
+        f"{err:.3e}, differing bits {nbad}/{diff.size * 32}")
+    return err, diff.size * 32 - nbad, diff.size * 32
+
+
+def phase_k2(device, cfg, gray):
+    from active_orb_slam2_tpu_torch.kernels.keypoints import (
+        keypoint_stage_cuda)
+    from active_orb_slam2_tpu_torch.ops import orb
+    pad = cfg.orb.pad
     _, _, taps, gauss = orb.device_constants(device)
-    levels = []
-    for lvl, (h, w) in enumerate(sizes):
-        li = resize_bilinear(img, h, w)
-        score = orb.threshold_fallback(nms3x3(fast_score_map(li)), ocfg)
-        ys, xs, _ = orb.detect_level(score, n_per[lvl], ocfg)
-        levels.append((pad_image(li, ocfg.pad), ys, xs))
+    levels, ys, xs, counts = detect_frame(device, cfg, gray)
+    by, bx, bcounts = border_keypoints(levels, device)
     worst_ang, bits_eq, bits_all = 0.0, 0, 0
-    for lvl, (padded, ys, xs) in enumerate(levels):
-        ang_k, desc_k = keypoint_stage_cuda(padded, ys, xs, ocfg.pad, taps,
-                                            gauss)
-        ang_p, desc_p = orb.keypoint_stage_torch(padded, ys, xs, ocfg.pad)
-        torch.cuda.synchronize()
-        d = torch.remainder(ang_k - ang_p + np.pi, 2 * np.pi) - np.pi
-        err = float(d.abs().max())
-        diff = desc_k.cpu().numpy().view(np.uint32) \
-            ^ desc_p.cpu().numpy().view(np.uint32)
-        nbad = int(np.unpackbits(diff.view(np.uint8)).sum())
-        log(f"  K2 level {lvl}: K={ys.shape[0]:4d} {tuple(padded.shape)} "
-            f"angle err {err:.3e} differing bits {nbad}/{diff.size * 32}")
+    for what, args in (("VGA frame", (ys, xs, counts)),
+                       ("border keypoints", (by, bx, bcounts))):
+        err, eq, n = k2_compare(what, levels, *args, pad, taps, gauss)
         worst_ang = max(worst_ang, err)
-        bits_eq += diff.size * 32 - nbad
-        bits_all += diff.size * 32
+        bits_eq += eq
+        bits_all += n
     agree = bits_eq / bits_all
     if worst_ang > K2_ANGLE_ATOL or agree < K2_BIT_AGREE:
         raise RuntimeError(f"K2 disagrees with its plain version: angle err "
                            f"{worst_ang:.3e}, bit agreement {agree:.6f}")
-
     log(f"K2 ok: max angle err {worst_ang:.3e}, bit agreement {agree:.6f}")
 
     def kernel():
-        return [keypoint_stage_cuda(p, y, x, ocfg.pad, taps, gauss)
-                for p, y, x in levels]
-    return {"max_abs_err": worst_ang, "what": "all 8 levels of one VGA frame",
+        return keypoint_stage_cuda(levels, ys, xs, counts, pad, taps, gauss)
+    bound_ms, bound_by = k2_bound(levels, ys, xs, counts, pad)
+    return {"max_abs_err": worst_ang,
+            "what": "all 8 levels of one VGA frame, one launch",
+            "bound_ms": bound_ms, "bound_by": bound_by, "variants": {},
             "kernel": kernel, "call": kernel,
-            "plain": lambda: [orb.keypoint_stage_torch(p, y, x, ocfg.pad)
-                              for p, y, x in levels]}
+            "plain": lambda: orb.keypoint_stage_torch(levels, ys, xs, counts,
+                                                      pad)}
 
 
 def phase_timing(checks):
-    """Each kernel's device time beside its plain version's, and the
-    span of one call of each.  The plain versions' device times come
-    last: ``torch.profiler`` leaves per-launch overhead behind it."""
-    for c in checks.values():
+    """Each kernel's device time beside its plain version's and its
+    bound, and the span of one call of each.  The plain versions' device
+    times come last: ``torch.profiler`` leaves per-launch overhead
+    behind it."""
+    for name, c in checks.items():
         c["ms"] = kernel_ms(c["kernel"])
+        c["variant_ms"] = {k: kernel_ms(fn) for k, fn in c["variants"].items()}
         c["spans"] = (time_ms(c["call"]), time_ms(c["plain"]))
     for name, c in checks.items():
         c["plain_ms"] = device_ms(c["plain"])
-        log(f"{name} ({c['what']}): device time {c['ms']:.4f} ms kernel, "
-            f"{c['plain_ms']:.4f} ms plain; call span (median of 50) "
-            f"{c['spans'][0]:.4f} ms kernel call, {c['spans'][1]:.4f} ms "
-            f"plain")
-    return {name: {k: c[k] for k in ("max_abs_err", "ms", "plain_ms")}
+        log(f"{name} ({c['what']}): device time {c['ms']:.4f} ms kernel "
+            f"(bound {c['bound_ms']:.6f} ms by {c['bound_by']}), "
+            f"{c['plain_ms']:.4f} ms plain; call span "
+            f"(median of 50) {c['spans'][0]:.4f} ms kernel call, "
+            f"{c['spans'][1]:.4f} ms plain")
+        for k, ms in c["variant_ms"].items():
+            log(f"{name} {k}: {ms:.4f} ms device time")
+    return {name: {"max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                   "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                   "bound_by": c["bound_by"], "library_ms": None,
+                   **c["variant_ms"]}
             for name, c in checks.items()}
 
 
@@ -388,9 +544,9 @@ def phase_slice(device, cfg, frames, gt):
     if launches["pose_opt"] != 2 * tracked:
         raise RuntimeError(f"K1 launched {launches['pose_opt']} times, "
                            f"expected {2 * tracked}")
-    if launches["keypoints"] != cfg.orb.n_levels * N_FRAMES:
+    if launches["keypoints"] != N_FRAMES:
         raise RuntimeError(f"K2 launched {launches['keypoints']} times, "
-                           f"expected {cfg.orb.n_levels * N_FRAMES}")
+                           f"expected {N_FRAMES}")
     if not ate <= ATE_BOUND_M:
         raise RuntimeError(f"ATE {ate:.5f} m above {ATE_BOUND_M} m")
     return launches
@@ -476,10 +632,10 @@ def phase_mapping_slice(device, frames, gt):
         raise RuntimeError(f"mapping slice: K1 launched "
                            f"{launches['pose_opt']} times, expected "
                            f"{2 * tracked}")
-    if launches["keypoints"] != cfg.orb.n_levels * N_FRAMES:
+    if launches["keypoints"] != N_FRAMES:
         raise RuntimeError(f"mapping slice: K2 launched "
                            f"{launches['keypoints']} times, expected "
-                           f"{cfg.orb.n_levels * N_FRAMES}")
+                           f"{N_FRAMES}")
     if slam.kf_seq < MAP_MIN_KEYFRAMES or len(calls) != slam.kf_seq - 1:
         raise RuntimeError(f"mapping slice: {slam.kf_seq} keyframes, "
                            f"{len(calls)} mapping calls")
@@ -658,10 +814,10 @@ def phase_arena_full(device, frames, gt):
         raise RuntimeError(f"arena-full run: K1 launched "
                            f"{launches['pose_opt']} times, expected "
                            f"{2 * tracked}")
-    if launches["keypoints"] != cfg.orb.n_levels * N_FRAMES:
+    if launches["keypoints"] != N_FRAMES:
         raise RuntimeError(f"arena-full run: K2 launched "
                            f"{launches['keypoints']} times, expected "
-                           f"{cfg.orb.n_levels * N_FRAMES}")
+                           f"{N_FRAMES}")
     if culled < FULL_MIN_CULLS:
         raise RuntimeError(f"arena-full run: {culled} keyframes culled")
     if not ate <= ATE_BOUND_M:
@@ -702,10 +858,11 @@ def main():
 
     t0 = time.perf_counter()
     build.library()
-    log(f"build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {build.build_info['seconds']:.2f} s) -> {build.build_info['path']}")
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, one per source, "
+        f"side by side: {build.build_info['seconds']:.2f} s) -> "
+        f"{build.build_info['paths']}")
     for line in build.build_info["ptxas"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log(f"  ptxas: {line.strip()}")
 
     cfg = vga_config()

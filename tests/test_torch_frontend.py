@@ -108,8 +108,11 @@ def test_pyramid_level_and_detection_match_jax(frame0, level1):
     h, w = img.shape
     t_img = timage.resize_bilinear(torch.from_numpy(frame0), h, w)
     np.testing.assert_allclose(t_img.numpy(), img, rtol=0, atol=1e-4)
-    np.testing.assert_array_equal(
-        timage.pad_image(torch.from_numpy(img), 24).numpy(), padded)
+    # the JAX package's replicate padding is a clamp of the indices, which
+    # the port's patch gather reads through in place of a padded copy
+    rows = np.clip(np.arange(-24, h + 24), 0, h - 1)
+    cols = np.clip(np.arange(-24, w + 24), 0, w - 1)
+    np.testing.assert_array_equal(img[rows][:, cols], padded)
     # on identical level images, FAST + fallback + distribution agree
     t_score = torb.threshold_fallback(
         tfast.nms3x3(tfast.fast_score_map(torch.from_numpy(img))), T_CFG)
@@ -121,14 +124,15 @@ def test_pyramid_level_and_detection_match_jax(frame0, level1):
 
 
 def test_extract_patches_bit_exact(level1):
-    _, padded, ys, xs, _, _ = level1
+    img, padded, ys, xs, _, _ = level1
     rng = np.random.default_rng(3)
     # detected keypoints plus border and out-of-range ones (clipped)
     ys = np.concatenate([ys[:40], rng.integers(-30, padded.shape[0], 24),
                          [0, padded.shape[0]]]).astype(np.int32)
     xs = np.concatenate([xs[:40], rng.integers(-30, padded.shape[1], 24),
                          [padded.shape[1], 0]]).astype(np.int32)
-    p_t = tpatches.extract_patches(torch.from_numpy(padded),
+    # the port reads the unpadded level, the JAX package the padded one
+    p_t = tpatches.extract_patches(torch.from_numpy(img),
                                    torch.from_numpy(ys), torch.from_numpy(xs),
                                    24).numpy()
     p_j = np.asarray(jpatches.extract_patches(jnp.asarray(padded),
@@ -146,17 +150,64 @@ def test_extract_patches_bit_exact(level1):
 
 
 def test_keypoint_stage_matches_jax(level1):
-    _, padded, ys, xs, _, _ = level1
+    img, padded, ys, xs, _, _ = level1
     ang_j, desc_j = jorb._keypoint_stage(jnp.asarray(padded), jnp.asarray(ys),
                                          jnp.asarray(xs), 24)
-    ang_t, desc_t = torb.keypoint_stage(torch.from_numpy(padded),
+    ang_t, desc_t = torb.keypoint_stage([torch.from_numpy(img)],
                                         torch.from_numpy(ys),
-                                        torch.from_numpy(xs), 24)
+                                        torch.from_numpy(xs), [len(ys)], 24)
     d = np.remainder(ang_t.numpy() - np.asarray(ang_j) + np.pi,
                      2 * np.pi) - np.pi
     assert np.abs(d).max() <= 1e-4, np.abs(d).max()
     agree = (bits(desc_t) == bits(desc_j)).mean()
     assert agree >= 0.999, agree
+
+
+def near_ends(rng, n, k):
+    """k coordinates within 18 px of each end of [0, n)."""
+    return np.concatenate([rng.integers(0, 18, k), rng.integers(n - 18, n, k)])
+
+
+def test_keypoint_stage_all_levels_matches_jax(frame0):
+    """The port's all-levels keypoint stage (clamped reads of unpadded
+    levels) against the JAX package's patch kernel plus keypoint stage
+    on each padded level: detected keypoints, keypoints within 18 px of
+    every border, and a level with none."""
+    rng = np.random.default_rng(7)
+    levels, ys, xs, counts, ang_j, desc_j = [], [], [], [], [], []
+    for lvl, (h, w) in enumerate(jorb._level_sizes(240, 320, J_CFG)):
+        img = jimage.resize_bilinear(jnp.asarray(frame0), h, w)
+        if lvl == 2:
+            y = x = np.zeros(0, np.int32)          # a level with none
+        else:
+            score = jorb._threshold_fallback(
+                jfast.nms3x3(jfast.fast_score_map(img)), J_CFG)
+            y, x, _ = jorb._detect_level(score, 32, J_CFG)
+            # near the top and bottom rows, then near the left and right
+            # columns, and the four corners
+            y = np.concatenate([np.asarray(y), near_ends(rng, h, 6),
+                                rng.integers(0, h, 12), [0, 0, h - 1, h - 1]])
+            x = np.concatenate([np.asarray(x), rng.integers(0, w, 12),
+                                near_ends(rng, w, 6), [0, w - 1, 0, w - 1]])
+            y, x = y.astype(np.int32), x.astype(np.int32)
+            a, d = jorb._keypoint_stage(jimage.pad_image(img, J_CFG.pad),
+                                        jnp.asarray(y), jnp.asarray(x),
+                                        J_CFG.pad)
+            ang_j.append(np.asarray(a))
+            desc_j.append(np.asarray(d))
+        levels.append(torch.from_numpy(np.array(img)))
+        ys.append(y)
+        xs.append(x)
+        counts.append(len(y))
+    assert counts[2] == 0 and min(counts[:2] + counts[3:]) > 24
+    ang_t, desc_t = torb.keypoint_stage(
+        levels, torch.from_numpy(np.concatenate(ys)),
+        torch.from_numpy(np.concatenate(xs)), counts, T_CFG.pad)
+    ang_j, desc_j = np.concatenate(ang_j), np.concatenate(desc_j)
+    assert ang_t.shape == (sum(counts),) and desc_t.shape == (sum(counts), 8)
+    d = np.remainder(ang_t.numpy() - ang_j + np.pi, 2 * np.pi) - np.pi
+    assert np.abs(d).max() <= 1e-4, np.abs(d).max()
+    np.testing.assert_array_equal(desc_t.numpy().view(np.uint32), desc_j)
 
 
 def test_build_extractor_matches_jax(frame0):

@@ -55,7 +55,7 @@ def tracked_centre(Tcw):
 
 
 def run_port(cfg, frames, tracked=None):
-    slam = tsys.System(cfg)
+    slam = tsys.System(cfg, device="cpu")
     calls = record_mapping_calls(slam)
     states, gt = [], []
     for i, (g, d, Twc) in enumerate(frames):
@@ -125,7 +125,7 @@ def test_save_load_map_round_trip(runs, tmp_path):
     ck = tslam.checkpoint()
     port_file = str(tmp_path / "port.npz")
     tslam.save_map(port_file)
-    back = tsys.System(TC)
+    back = tsys.System(TC, device="cpu")
     back.load_map(port_file)
     assert back.state == tsys.LOST and back.kf_seq == tslam.kf_seq
     assert back.n_live_kf == int(ck["kf_valid"].sum())
@@ -140,14 +140,14 @@ def test_save_load_map_round_trip(runs, tmp_path):
 
     jax_file = str(tmp_path / "jax.npz")
     jslam.save_map(jax_file)
-    t_from_jax = tsys.System(TC)
+    t_from_jax = tsys.System(TC, device="cpu")
     t_from_jax.load_map(jax_file)
     assert t_from_jax.state == tsys.LOST
     assert t_from_jax.kf_seq == jslam.kf_seq
     _same_arena(t_from_jax.checkpoint(), jslam.checkpoint())
 
     # restore() writes a checkpoint into another System's arena
-    other = tsys.System(TC)
+    other = tsys.System(TC, device="cpu")
     other.restore(ck)
     _same_arena(convert.map_to_jax_numpy(other.map), ck)
 
@@ -201,7 +201,7 @@ def test_e2e_rgbd_checks_on_port(tmp_path):
     np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-5)
     # checkpoint round trip
     ck = slam.checkpoint()
-    slam2 = tsys.System(TC)
+    slam2 = tsys.System(TC, device="cpu")
     slam2.restore(ck)
     np.testing.assert_array_equal(slam2.map.pt_valid.numpy(),
                                   slam.map.pt_valid.numpy())
@@ -209,7 +209,7 @@ def test_e2e_rgbd_checks_on_port(tmp_path):
                                slam.map.kf_pose.numpy())
     # reset and re-initialisation
     seq = orbit(6, radius=2.0)
-    s2 = tsys.System(TC)
+    s2 = tsys.System(TC, device="cpu")
     for i, (g, d, _) in enumerate(seq):
         s2.track_rgbd(g, d, i / 30.0)
     assert s2.kf_seq > 0

@@ -95,6 +95,26 @@ def test_plain_kernel_matches_jax_fused(seed):
     assert got.inliers.dtype == torch.bool and got.n_inliers.dtype == torch.int32
 
 
+@pytest.mark.parametrize("E", [1, 2000])
+def test_fused_entry_edge_counts_match_jax(E):
+    """The K1 entry on the CPU at the fewest edges and at 2000, the
+    feature count of ``bench.py``'s KITTI stereo window."""
+    args, _ = noisy_problem(0, E)
+    ref = jkern.pose_optimization_fused(JCam(**CAM), *map(jnp.asarray, args))
+    got = run_torch(tkern.pose_optimization_fused, CAM, args)
+    # one edge gives 3 residuals for 6 unknowns, so the damped steps
+    # amplify float rounding: the two packages differ by up to 1.05e-3 in
+    # the pose over seeds 0-2 there, and by at most 1.2e-5 at E >= 300
+    atol = 2e-3 if E == 1 else 1e-4
+    np.testing.assert_allclose(got.pose.numpy(), np.asarray(ref.pose),
+                               atol=atol)
+    np.testing.assert_array_equal(got.inliers.numpy(),
+                                  np.asarray(ref.inliers))
+    assert int(got.n_inliers) == int(ref.n_inliers)
+    np.testing.assert_allclose(float(got.chi2), float(ref.chi2), rtol=1e-5,
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_plain_kernel_matches_jax_reference(seed):
     args, true_pose = noisy_problem(seed)

@@ -28,7 +28,7 @@ def run_both(n_frames):
     after each frame, camera centres) and the ground-truth centres."""
     jc, tc = configs()
     jslam = jsys.System(jc, use_mapping=False)
-    tslam = tsys.System(tc, use_mapping=False)
+    tslam = tsys.System(tc, use_mapping=False, device="cpu")
     gt, jstates, tstates = [], [], []
     for i, (g, d, Twc) in enumerate(jsyn.make_sequence(
             n_frames, jc.camera, world=jsyn.default_world(),
@@ -93,11 +93,12 @@ def test_port_imports_no_jax():
 def test_not_ported_paths_raise(tmp_path):
     _, tc = configs()
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tsys.System(tc, use_loop_closing=True)
+        tsys.System(tc, use_loop_closing=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tsys.System(tc, use_mapping=False, use_loop_closing=True)
+        tsys.System(tc, use_mapping=False, use_loop_closing=True,
+                    device="cpu")
     # local mapping (the default) and map saving are ported
-    slam = tsys.System(tc)
+    slam = tsys.System(tc, device="cpu")
     assert slam.use_mapping
     slam.save_map(str(tmp_path / "empty.npz"))
     with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
@@ -113,10 +114,25 @@ def test_not_ported_paths_raise(tmp_path):
                         np.zeros((240, 320), np.float32), 0.0)
 
 
+def test_system_defaults_to_cuda():
+    """The entry point runs on the card unless told otherwise; without a
+    card it raises rather than falling back to the CPU."""
+    import inspect
+    default = inspect.signature(tsys.System).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    _, tc = configs()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tsys.System(tc)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tsys.System(tc, use_mapping=False, device="cuda")
+
+
 def test_trajectory_outputs(tmp_path):
     """Trajectory writers and metrics on a short port run."""
     _, tc = configs()
-    slam = tsys.System(tc, use_mapping=False)
+    slam = tsys.System(tc, use_mapping=False, device="cpu")
     for i, (g, d, _) in enumerate(jsyn.make_sequence(
             4, tc.camera, world=jsyn.default_world(),
             trajectory=jsyn.orbit_trajectory(4, step_deg=2.0))):
