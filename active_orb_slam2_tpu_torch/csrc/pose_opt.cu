@@ -43,6 +43,12 @@
 // the per-level information table (inv_sigma2 of levels 0..n_table-1, so
 // w_info has the plain version's bits).  Outputs: out [8] (pose, inlier
 // chi2), n_inliers int32, mask bool [E].
+//
+// A launch solves P independent problems of E edges each (the
+// relocalizer's candidates): every array above gains a leading axis of P,
+// and block b of a grid of P blocks runs the code of a single problem on
+// problem b's slices.  Nothing is shared between blocks, so a problem's
+// result in a batch has the bits of its own launch.
 
 #include <cuda_runtime.h>
 
@@ -324,18 +330,30 @@ __device__ __forceinline__ void retract(const float (&pose)[7],
 
 __device__ __forceinline__ bool bit(unsigned m, int k) { return (m >> k) & 1u; }
 
-// One block of T threads, each holding EPT edges: edge k of thread i is
-// edge k * T + i.  The grid is one block, so the bounds tell the
-// compiler it may spend registers on one block per SM (at 256 threads
-// and 4 edges it otherwise stops at 128 and spills).
+// One block of T threads per problem, each thread holding EPT edges: edge
+// k of thread i is edge k * T + i.  A block is alone on its SM (P <= 132
+// blocks in the relocalizer's use, one in tracking), so the bounds tell
+// the compiler it may spend registers on one block per SM (at 256
+// threads and 4 edges it otherwise stops at 128 and spills).
 template <int T, int EPT>
-__global__ void __launch_bounds__(T, 1) pose_opt_kernel(const Args a) {
+__global__ void __launch_bounds__(T, 1) pose_opt_kernel(Args a) {
   constexpr int W = T / 32;
   __shared__ float part[2][W][32];
   __shared__ __align__(16) float slots[W][32];
   const int tid = threadIdx.x;
   float* slot = slots[tid >> 5];
   const Cam& cam = a.cam;
+  // problem blockIdx.x's slices
+  const size_t pb = blockIdx.x, eb = pb * (size_t)a.E;
+  a.pose0 += 7 * pb;
+  a.pw += 3 * eb;
+  a.obs += 3 * eb;
+  a.level += eb;
+  a.stereo += eb;
+  a.valid += eb;
+  a.out += 8 * pb;
+  a.n_inliers += pb;
+  a.mask += eb;
   const float delta_mono = __fsqrt_rn(kChi2Mono);      // Huber deltas
   const float delta_stereo = __fsqrt_rn(kChi2Stereo);
 
@@ -507,31 +525,32 @@ __global__ void __launch_bounds__(T, 1) pose_opt_kernel(const Args a) {
 }
 
 template <int EPT>
-int launch(const Args& a, cudaStream_t stream) {
-  pose_opt_kernel<kThreads, EPT><<<1, kThreads, 0, stream>>>(a);
+int launch(const Args& a, int P, cudaStream_t stream) {
+  pose_opt_kernel<kThreads, EPT><<<P, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// P problems of E edges each, arrays [P, ...] contiguous; P >= 1,
 // 1 <= E <= kThreads * kMaxEdgesPerThread (2048); rounds, iters >= 1.
 extern "C" int aos2_pose_opt(const float* pose0, const float* pw,
                              const float* obs, const int* level,
                              const unsigned char* stereo,
                              const unsigned char* valid, const float* w_table,
-                             int n_table, int E, float fx, float fy, float cx,
-                             float cy, float bf, int rounds, int iters,
-                             float* out, int* n_inliers, unsigned char* mask,
-                             cudaStream_t stream) {
-  if (E < 1 || n_table < 1 || rounds < 1 || iters < 1)
+                             int n_table, int P, int E, float fx, float fy,
+                             float cx, float cy, float bf, int rounds,
+                             int iters, float* out, int* n_inliers,
+                             unsigned char* mask, cudaStream_t stream) {
+  if (P < 1 || E < 1 || n_table < 1 || rounds < 1 || iters < 1)
     return (int)cudaErrorInvalidValue;
   const Args a{pose0,  pw,    obs,    level, stereo,    valid,
                w_table, n_table, E,   Cam{fx, fy, cx, cy, bf},
                rounds, iters, out,    n_inliers, mask};
   const int ept = (E + kThreads - 1) / kThreads;
-  if (ept <= 1) return launch<1>(a, stream);
-  if (ept <= 2) return launch<2>(a, stream);
-  if (ept <= 4) return launch<4>(a, stream);
-  if (ept <= kMaxEdgesPerThread) return launch<8>(a, stream);
+  if (ept <= 1) return launch<1>(a, P, stream);
+  if (ept <= 2) return launch<2>(a, P, stream);
+  if (ept <= 4) return launch<4>(a, P, stream);
+  if (ept <= kMaxEdgesPerThread) return launch<8>(a, P, stream);
   return (int)cudaErrorInvalidValue;
 }

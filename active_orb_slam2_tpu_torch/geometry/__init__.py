@@ -2,7 +2,7 @@
 
 from active_orb_slam2_tpu_torch.geometry.se3 import (  # noqa: F401
     quat_normalize, quat_mul, quat_conj, quat_rotate, quat_to_mat,
-    se3_identity, se3_compose, se3_inverse, se3_apply, se3_exp,
+    mat_to_quat, se3_identity, se3_compose, se3_inverse, se3_apply, se3_exp,
     se3_retract, se3_to_mat44,
 )
 from active_orb_slam2_tpu_torch.geometry.projection import (  # noqa: F401

@@ -60,6 +60,35 @@ def quat_to_mat(q):
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def mat_to_quat(m):
+    """Rotation matrix [..., 3, 3] -> quaternion [..., 4] with w >= 0.
+
+    Branch-free Shepperd, as the JAX package: all four candidate
+    quaternions (each scaled by 4 times a squared component), the one
+    with the largest magnitude kept (first on ties), normalized, sign
+    made canonical.
+    """
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = torch.clamp(1.0 + tr, min=0.0)
+    qx2 = torch.clamp(1.0 + m00 - m11 - m22, min=0.0)
+    qy2 = torch.clamp(1.0 - m00 + m11 - m22, min=0.0)
+    qz2 = torch.clamp(1.0 - m00 - m11 + m22, min=0.0)
+    cand = torch.stack([
+        torch.stack([qw2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, qx2, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, qy2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, qz2], dim=-1),
+    ], dim=-2)                                        # [..., 4 cand, 4]
+    best = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    q = torch.gather(cand, -2, best[..., None, None].expand(
+        best.shape + (1, 4)))[..., 0, :]
+    q = quat_normalize(q)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
 def _so3_exp(w):
     """so(3) vector [..., 3] -> quaternion, Taylor-safe near zero."""
     theta2 = (w * w).sum(-1, keepdim=True)

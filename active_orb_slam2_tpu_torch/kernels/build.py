@@ -38,10 +38,10 @@ SIGNATURES = {
                            _P, _P, _P],
     },
     "pose_opt": {
-        # pose0, pw, obs, level, stereo, valid, w_table, n_table, E, fx,
-        # fy, cx, cy, bf, rounds, iters, out, n_inliers, mask, stream
-        "aos2_pose_opt": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
-                          _F, _F, _I, _I, _P, _P, _P, _P],
+        # pose0, pw, obs, level, stereo, valid, w_table, n_table, P, E,
+        # fx, fy, cx, cy, bf, rounds, iters, out, n_inliers, mask, stream
+        "aos2_pose_opt": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                          _F, _F, _F, _I, _I, _P, _P, _P, _P],
     },
 }
 

@@ -1,8 +1,9 @@
-"""System: the public API and host orchestrator (RGB-D path with local
-mapping).
+"""System: the public API and host orchestrator (RGB-D and stereo
+tracking with local mapping, relocalization, localization-only mode).
 
-Port of the RGB-D subset of ``active_orb_slam2_tpu/models/system.py``.
-Each frame is one step on the device (ORB extraction, tracking, the
+Port of ``active_orb_slam2_tpu/models/system.py`` without loop closing
+and monocular input.  Each frame is one step on the device (ORB
+extraction, tracking, the
 keyframe decision and insertion) that never blocks the host; the
 per-frame stats vectors are retired in batches: the host stacks a group
 on the device, starts one non-blocking copy into pinned memory and
@@ -21,10 +22,19 @@ the host never waits on the mapping.  An arena that is full of
 keyframes forces an eviction, which does wait on the card, as in the
 JAX package.
 
+A frame that arrives LOST (after a tracking failure, or the first
+frame after ``load_map``) first drains the pipeline and tries
+relocalization (``models/relocalization.py``) against the 8 newest
+keyframes; that attempt waits on the card, as the JAX package's does.
+Its solvers' one-time setup on the card runs when the ``System`` is
+built, so that the first attempt does not stall on it.  On success the
+frame is tracked by the normal step from the recovered pose; on failure
+it is recorded LOST at the carried pose.  In
+localization-only mode the step inserts no keyframe and tracks on
+temporal points where the map is out of view.
+
 What the port does not run yet raises ``NotImplementedError`` naming
-its ROADMAP item: loop closing, stereo and monocular input,
-relocalization of a LOST frame (including the first frame after
-``load_map``), and localization-only mode.
+its ROADMAP item: loop closing and monocular input.
 """
 
 import json
@@ -39,10 +49,13 @@ from active_orb_slam2_tpu_torch.geometry.se3 import se3_to_mat44
 from active_orb_slam2_tpu_torch.io.trajectory import (
     resolve_frame_poses, save_kitti, save_tum)
 from active_orb_slam2_tpu_torch.models import convert
-from active_orb_slam2_tpu_torch.models.frame import build_frame_pipeline
+from active_orb_slam2_tpu_torch.models.frame import (
+    build_frame_pipeline, build_stereo_pipeline)
 from active_orb_slam2_tpu_torch.models.local_mapping import (
     build_keyframe_culling, build_keyframe_mapping)
 from active_orb_slam2_tpu_torch.models.map_state import empty_map
+from active_orb_slam2_tpu_torch.models.relocalization import (
+    build_relocalizer, gumbel_noise, warm_up_solvers)
 from active_orb_slam2_tpu_torch.models.tracking import (
     STATS_POSE, STATS_REF_FID, STATS_REF_POSE, build_create_keyframe,
     build_track_step, init_track_state)
@@ -51,6 +64,8 @@ from active_orb_slam2_tpu_torch.utils import np_se3
 NOT_INITIALIZED = 0
 OK = 1
 LOST = 2
+N_RELOC_CANDIDATES = 8     # keyframes one relocalization attempt tries
+RELOC_SEED = 11            # the JAX package's PRNGKey(11)
 
 
 def _not_ported(what: str, item: int):
@@ -79,7 +94,8 @@ def _landed(host, event):
 
 
 class System:
-    """RGB-D SLAM engine: tracking with local mapping at each keyframe.
+    """RGB-D / stereo SLAM engine: tracking with local mapping at each
+    keyframe, relocalization and localization-only mode.
 
     Runs on the CUDA card (``device``, by default ``cuda``); a CPU run
     passes ``device="cpu"``.
@@ -98,6 +114,7 @@ class System:
                 "this machine has none; pass device=\"cpu\" to run on the "
                 "CPU")
         self.make_rgbd = build_frame_pipeline(cfg)
+        self._make_stereo = None         # built at the first stereo frame
         self.track_step = build_track_step(cfg)
         self.create_kf = build_create_keyframe(cfg)
         self.use_mapping = use_mapping
@@ -107,6 +124,13 @@ class System:
         self.kf_culling_forced = build_keyframe_culling(cfg, force=True)
         self.pipeline_depth = max(int(pipeline_depth), 0)
         self.retire_batch = max(int(retire_batch), 1)
+        self.localization_only = False
+        self.relocalizer = None          # built at the first LOST frame
+        self._reloc_gen = None           # its random numbers
+        if self.device.type == "cuda":
+            # the solvers' one-time setup, here and not in the first
+            # relocalization attempt
+            warm_up_solvers(N_RELOC_CANDIDATES, self.device)
         self._clear()
 
     # ----------------------------------------------------- state / pipeline
@@ -121,6 +145,7 @@ class System:
         self.kf_seq = 0                  # monotone keyframe counter
         self.n_live_kf = 0               # live (valid) keyframe count
         self.last_kf_slot = -1
+        self.last_kf_inliers = 0         # local inliers at the newest KF
         self._last_kf_pose_np = None
         self.rel_records = []            # (t, ref_kf_slot, Tcr) per frame
         self.kf_records = []             # (t, kf_slot) per keyframe
@@ -204,7 +229,8 @@ class System:
             else:
                 self._state = OK
                 if kf_slot >= 0:
-                    self._register_keyframe(kf_slot, e["ts"], e["frame_id"])
+                    self._register_keyframe(kf_slot, e["ts"], e["frame_id"],
+                                            n_inliers)
             # the generation tag must match: a slot can be culled and
             # re-tenanted while a frame is in flight.  A mismatched record
             # walks the cull-redirect lineage to a live ancestor.
@@ -249,7 +275,7 @@ class System:
             return (ts, -1, tcr)         # tcr already composes a world pose
         return (ts, -1, np.asarray(pose_np, np.float64))
 
-    def _register_keyframe(self, k, timestamp, frame_id):
+    def _register_keyframe(self, k, timestamp, frame_id, n_inliers):
         """Mirror a keyframe the device inserted and run the keyframe
         mapping on it.  Nothing here waits on the card: the previous
         event's cull snapshot has landed by now, and this event's is
@@ -263,6 +289,7 @@ class System:
         self._slot_fid[k] = frame_id
         self._kf_ins_frames.append(frame_id)
         self.last_kf_slot = k
+        self.last_kf_inliers = n_inliers
         self.kf_records.append((timestamp, k))
         if self.use_mapping:
             _, victim, vparent, vpose, vppose = self.keyframe_mapping(
@@ -383,17 +410,24 @@ class System:
             out.append(t)
         return out
 
-    def _dispatch_track(self, host_inputs, timestamp):
+    def _dispatch_track(self, frame, timestamp):
         """Enqueue one frame step; retire what has landed, and a batch if
-        the pipeline is deep enough.  Never blocks on the current frame."""
+        the pipeline is deep enough.  Never blocks on the current frame,
+        except on a LOST frame, which tries relocalization first."""
         if self._state == LOST:
             self.flush()
-            if self._state == LOST:
-                raise _not_ported("relocalization of a LOST frame", 14)
-        frame, _ = self.make_rgbd(*host_inputs)
+            if self._state == LOST and not self._try_relocalize(frame):
+                self.metrics.append({
+                    "frame": self.frame_id, "ts": float(timestamp),
+                    "n_motion_inliers": 0, "n_inliers": 0, "state": LOST,
+                    "n_keyframes": self.kf_seq, "wall_ms": None})
+                self._record_frame(timestamp, self.track.pose.cpu().numpy())
+                self.frame_id += 1
+                return se3_to_mat44(self.track.pose)
         st, stats, m = self.track_step(
             self.map, frame, self.track,
-            self.use_mapping)
+            self.use_mapping and not self.localization_only,
+            self.localization_only)
         self.map, self.track = m, st
         self._pending.append({"frame_id": self.frame_id, "ts": timestamp,
                               "stats": stats, "t_enq": time.perf_counter()})
@@ -427,13 +461,17 @@ class System:
         d = np.asarray(depth)
         if d.dtype != np.uint16:
             d = np.clip(d * 1e3, 0, 65535).astype(np.uint16)
-        inputs = self._upload(g, d)
+        return self._track_frame(self.make_rgbd, self._upload(g, d),
+                                 timestamp)
+
+    def _track_frame(self, make, inputs, timestamp):
+        """Build the frame on the device and initialize or track it."""
+        frame, n_depth = make(*inputs)
         if self._state == NOT_INITIALIZED:
-            frame, n_depth = self.make_rgbd(*inputs)
             pose = self._initialize(frame, int(n_depth), timestamp)
             self.frame_id += 1
             return se3_to_mat44(pose)
-        return self._dispatch_track(inputs, timestamp)
+        return self._dispatch_track(frame, timestamp)
 
     def _initialize(self, frame, n_depth, timestamp):
         """StereoInitialization: the first frame with enough depth points
@@ -458,6 +496,7 @@ class System:
         self.kf_seq += 1
         self.n_live_kf += 1
         kf_inliers = int((self.map.kf_point[k] >= 0).sum())
+        self.last_kf_inliers = kf_inliers
         self._last_kf_pose_np = self.map.kf_pose[k].cpu().numpy()
         self.kf_records.append((timestamp, k))
 
@@ -488,13 +527,76 @@ class System:
         self.rel_records.append((timestamp, int(ref), tcr))
 
     def track_stereo(self, left, right, timestamp: float):
-        raise _not_ported("stereo tracking", 16)
+        """Process one rectified stereo pair ([H, W] uint8 or float
+        0..255 each); returns Tcw as a 4x4 tensor on the device, as
+        :meth:`track_rgbd`.  Depth comes from row-band matching with SAD
+        refinement; the back end is the RGB-D one."""
+        if self._make_stereo is None:
+            self._make_stereo = build_stereo_pipeline(self.cfg)
+        images = [np.asarray(a) for a in (left, right)]
+        images = [a if a.dtype == np.uint8
+                  else np.clip(a, 0, 255).astype(np.uint8) for a in images]
+        return self._track_frame(self._make_stereo, self._upload(*images),
+                                 timestamp)
 
     def track_mono(self, gray, timestamp: float):
         raise _not_ported("monocular tracking", 17)
 
+    # ------------------------------------------------------ relocalization
+
+    def _reloc_candidates(self):
+        """The newest keyframes, newest first, padded with -1: from the
+        host records, or, right after ``load_map``, from the arena's
+        frame ids."""
+        slots = [k for _, k in self.kf_records[-N_RELOC_CANDIDATES:]][::-1]
+        if not slots:
+            valid = np.flatnonzero(self.map.kf_valid.cpu().numpy())
+            fid = self.map.kf_frame_id.cpu().numpy()[valid]
+            slots = list(valid[np.argsort(-fid, kind="stable")]
+                         [:N_RELOC_CANDIDATES])
+        cands = np.full(N_RELOC_CANDIDATES, -1, np.int32)
+        cands[:len(slots)] = slots
+        return cands
+
+    def _try_relocalize(self, frame) -> bool:
+        """``Tracking::Relocalization`` against the newest keyframes:
+        batched PnP RANSAC and two pose refinements; >= 50 inliers to
+        accept.  Waits on the card for the verdict."""
+        if self.relocalizer is None:
+            self.relocalizer = build_relocalizer(
+                self.cfg, n_candidates=N_RELOC_CANDIDATES)
+            self._reloc_gen = torch.Generator(device=self.device)
+            self._reloc_gen.manual_seed(RELOC_SEED)
+        noise = gumbel_noise(N_RELOC_CANDIDATES, self.cfg.orb.n_features,
+                             self._reloc_gen, self.device)
+        cands, = self._upload(self._reloc_candidates())
+        res = self.relocalizer(self.map, frame, cands, noise)
+        if not bool(res.ok):
+            return False
+
+        def scalar(v, dtype=torch.int32):
+            return torch.tensor(v, dtype=dtype, device=self.device)
+
+        self.track = self.track._replace(
+            pose=res.pose, assoc=res.assoc, angle=frame.angle,
+            vel_ok=scalar(False, torch.bool), ok=scalar(True, torch.bool),
+            frame_id=scalar(self.frame_id), kf_seq=scalar(self.kf_seq),
+            last_kf_slot=scalar(max(self.last_kf_slot, 0)),
+            last_kf_inliers=scalar(max(self.last_kf_inliers, 1)))
+        self._state = OK
+        return True
+
+    # ------------------------------------------------------------ mode API
+
     def activate_localization_mode(self):
-        raise _not_ported("localization-only mode", 14)
+        """Track against the map without inserting keyframes, on temporal
+        points where the map is out of view."""
+        self.flush()
+        self.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.flush()
+        self.localization_only = False
 
     # ------------------------------------------------------------- outputs
 
@@ -556,7 +658,8 @@ class System:
     def load_map(self, path):
         """Load a map saved by either package's ``save_map``.  The host
         records of the previous session are dropped and tracking restarts
-        LOST, so the next frame needs relocalization (ROADMAP item 14)."""
+        LOST, so the next frame relocalizes into the loaded map (the
+        map-reuse flow, usually with localization-only mode)."""
         self.flush()
         with np.load(path) as data:
             self.restore({k: data[k] for k in data.files

@@ -15,9 +15,12 @@ it packs the same per-frame stats vector.  Differences in form:
   tensor pre-filled as the JAX code does, and ``lax.top_k`` is the
   stable top-k of ``ops/topk.py``.
 
-Localization-only mode (the temporal points of ``UpdateLastFrame``)
-waits for ROADMAP item 14; the step still refreshes the temporal-point
-fields of the state, as the JAX step does.
+Localization-only mode (``loc_mode``, a host flag) adds the temporal
+points of ``UpdateLastFrame``: the last frame's close-depth features
+stand in for its missing map points in the motion-stage search and its
+pose optimization (never in the map association), and >= 20
+motion-stage inliers keep the frame OK.  With ``loc_mode`` off the step
+runs none of those operations.
 """
 
 from typing import NamedTuple
@@ -146,23 +149,30 @@ def _match_candidates(cam, pose, xyz, desc, max_dist_bound, cand_ok,
     return torch.where(ok, idx, -1), ok
 
 
+def _pose_opt(cam, pose0, frame: FrameData, pw, valid):
+    """Motion-only BA of the frame's valid features against points pw
+    [F, 3] where ``valid``."""
+    obs_uvr = torch.cat([frame.uv, frame.ur[:, None]], dim=-1)
+    return pose_optimization_fused(cam, pose0, pw, obs_uvr, frame.level,
+                                   frame.ur > 0, valid & frame.valid)
+
+
 def _pose_opt_from_assoc(cam, pose0, m: MapState, frame: FrameData, assoc):
     """Motion-only BA over the current feature -> point associations."""
     pt = torch.clamp(assoc, min=0).long()
-    obs_uvr = torch.cat([frame.uv, frame.ur[:, None]], dim=-1)
-    valid = (assoc >= 0) & frame.valid & m.pt_valid[pt]
-    return pose_optimization_fused(cam, pose0, m.pt_xyz[pt], obs_uvr,
-                                   frame.level, frame.ur > 0, valid)
+    return _pose_opt(cam, pose0, frame, m.pt_xyz[pt],
+                     (assoc >= 0) & m.pt_valid[pt])
 
 
 def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
     """Return the per-frame tracking step with the fused keyframe
     decision and insertion:
 
-      (m, frame, st, allow_kf) -> (new_st, stats [23], m)
+      (m, frame, st, allow_kf, loc_mode=False) -> (new_st, stats [23], m)
 
-    ``allow_kf`` (bool or bool tensor) gates NeedNewKeyFrame; ``m`` is
-    updated in place and returned.
+    ``allow_kf`` (bool or bool tensor) gates NeedNewKeyFrame;
+    ``loc_mode`` (a Python bool) turns on localization-only tracking
+    with temporal points; ``m`` is updated in place and returned.
     """
     cam = cfg.camera
     tcfg = cfg.tracking
@@ -171,24 +181,48 @@ def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
     max_kf = cfg.map.max_keyframes
 
     def track_step(m: MapState, frame: FrameData, st: TrackState,
-                   allow_kf=False):
+                   allow_kf=False, loc_mode: bool = False):
         P = m.max_points
         F = st.assoc.shape[0]
         pred = torch.where(st.vel_ok, se3_compose(st.velocity, st.pose),
                            st.pose)
 
         # ---- motion-model stage: re-find the last frame's points -------
+        # candidate f is the map point of last-frame feature f or, in
+        # localization-only mode, its temporal point (same descriptor)
         prev_pts = torch.clamp(st.assoc, min=0).long()
         map_ok = (st.assoc >= 0) & m.pt_valid[prev_pts]
+        cand_xyz, cand_desc, cand_maxd, cand_ok = (
+            m.pt_xyz[prev_pts], m.pt_desc[prev_pts], m.pt_max_dist[prev_pts],
+            map_ok)
+        if loc_mode:
+            use_tmp = st.tmp_ok & ~map_ok
+            cand_xyz = torch.where(use_tmp[:, None], st.tmp_xyz, cand_xyz)
+            cand_desc = torch.where(use_tmp[:, None], st.tmp_desc, cand_desc)
+            cand_maxd = torch.where(use_tmp, st.tmp_max_dist, cand_maxd)
+            cand_ok = map_ok | use_tmp
         idx1, cok = _match_candidates(
-            cam, pred, m.pt_xyz[prev_pts], m.pt_desc[prev_pts],
-            m.pt_max_dist[prev_pts], map_ok, frame,
+            cam, pred, cand_xyz, cand_desc, cand_maxd, cand_ok, frame,
             radius_base=15.0, ratio=tcfg.nn_ratio_motion, max_dist=100.0,
             already=torch.zeros_like(frame.valid), query_angle=st.angle)
         matched_c = (idx1 >= 0) & cok
+        # temporal matches feed the motion-only BA, never the map
+        # association
+        map_c = matched_c & ~use_tmp if loc_mode else matched_c
         assoc1 = scatter_max(F, torch.clamp(idx1, min=0),
-                             torch.where(matched_c, prev_pts, -1))
-        res1 = _pose_opt_from_assoc(cam, pred, m, frame, assoc1)
+                             torch.where(map_c, prev_pts, -1))
+        if loc_mode:
+            tmp_src = scatter_max(F, torch.clamp(idx1, min=0), torch.where(
+                matched_c & use_tmp,
+                torch.arange(F, dtype=torch.int32, device=idx1.device), -1))
+            tmp_src = torch.where(assoc1 >= 0, -1, tmp_src)
+            pw1 = torch.where((tmp_src >= 0)[:, None],
+                              st.tmp_xyz[torch.clamp(tmp_src, min=0).long()],
+                              m.pt_xyz[torch.clamp(assoc1, min=0).long()])
+            res1 = _pose_opt(cam, pred, frame, pw1,
+                             (assoc1 >= 0) | (tmp_src >= 0))
+        else:
+            res1 = _pose_opt_from_assoc(cam, pred, m, frame, assoc1)
         # TrackReferenceKeyFrame-style fallback: on a collapsed motion
         # stage, drop its pose and associations and search wide from the
         # last frame's pose
@@ -238,6 +272,10 @@ def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
 
         velocity = se3_compose(pose, se3_inverse(st.pose))
         ok = res2.n_inliers >= tcfg.min_inliers_local
+        if loc_mode:
+            # visual odometry on temporal points when the map is out of
+            # view (the reference's mbVO state)
+            ok = ok | (res1.n_inliers >= 20)
         # temporal points from this frame's depth (UpdateLastFrame)
         Twc = se3_inverse(pose)
         t_z = frame.depth

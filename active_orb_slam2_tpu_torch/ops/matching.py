@@ -27,34 +27,38 @@ def pm_descriptors(desc):
 
 
 def hamming_matrix(desc_a, desc_b, valid_a=None, valid_b=None):
-    """All-pairs Hamming distances [M, N] float32 (exact integers);
+    """All-pairs Hamming distances [..., M, N] float32 (exact integers) of
+    desc_a [..., M, 8] and desc_b [..., N, 8] (leading axes broadcast);
     invalid rows / columns get INF."""
-    dot = pm_descriptors(desc_a) @ pm_descriptors(desc_b).T
+    dot = pm_descriptors(desc_a) @ pm_descriptors(desc_b).transpose(-1, -2)
     d = 0.5 * (256.0 - dot)
     if valid_a is not None:
-        d = torch.where(valid_a[:, None], d, INF)
+        d = torch.where(valid_a[..., :, None], d, INF)
     if valid_b is not None:
-        d = torch.where(valid_b[None, :], d, INF)
+        d = torch.where(valid_b[..., None, :], d, INF)
     return d
 
 
 def _best_two(d):
     """Row-wise (best, second, argbest) with the lower index first on
     ties, as ``jax.lax.top_k(-d, 2)`` gives them."""
-    jbest = torch.argmin(d, dim=1, keepdim=True)          # first min wins
-    best = d.gather(1, jbest)[:, 0]
-    second = d.scatter(1, jbest, float("inf")).amin(1)
-    return best, second, jbest[:, 0]
+    jbest = torch.argmin(d, dim=-1, keepdim=True)         # first min wins
+    best = d.gather(-1, jbest)[..., 0]
+    second = d.scatter(-1, jbest, float("inf")).amin(-1)
+    return best, second, jbest[..., 0]
 
 
 def match_mutual(d, max_dist: float = TH_LOW, ratio: float = 1.0):
-    """Mutual-best match with ratio test on a gated distance matrix.
+    """Mutual-best match with ratio test on a gated distance matrix
+    [..., M, N] (leading axes are independent matrices).
 
-    Returns (match_idx [M] int32 into columns, -1 if none; dist [M]).
+    Returns (match_idx [..., M] int32 into columns, -1 if none; dist
+    [..., M]).
     """
     best, second, jbest = _best_two(d)
-    col_best_i = torch.argmin(d, dim=0)                  # first min wins
-    mutual = col_best_i[jbest] == torch.arange(d.shape[0], device=d.device)
+    col_best_i = torch.argmin(d, dim=-2)                 # first min wins
+    mutual = col_best_i.gather(-1, jbest) == torch.arange(
+        d.shape[-2], device=d.device)
     ok = (best <= max_dist) & (best < ratio * second) & mutual
     return torch.where(ok, jbest, -1).to(torch.int32), best
 
@@ -67,13 +71,16 @@ def search_by_projection(proj_uv, radii, pred_level, query_desc, query_valid,
 
     proj_uv [M, 2] projected points, radii [M] search radius in px,
     pred_level [M] predicted octave, query_desc [M, 8]; feats_* are the
-    frame's features [N, ...].  Returns (match_idx [M] int32, dist [M]).
+    frame's features [N, ...].  The query arrays may have leading batch
+    axes, each batch searching the same frame.  Returns (match_idx [M]
+    int32, dist [M]), with the query's leading axes.
     """
     d = hamming_matrix(query_desc, feats_desc, query_valid, feats_valid)
-    du = proj_uv[:, 0:1] - feats_uv[None, :, 0]
-    dv = proj_uv[:, 1:2] - feats_uv[None, :, 1]
-    within = (du * du + dv * dv) <= (radii[:, None] * radii[:, None])
-    lv_ok = (feats_level[None, :] - pred_level[:, None]).abs() <= level_window
+    du = proj_uv[..., :, 0:1] - feats_uv[..., None, :, 0]
+    dv = proj_uv[..., :, 1:2] - feats_uv[..., None, :, 1]
+    within = (du * du + dv * dv) <= (radii[..., :, None] * radii[..., :, None])
+    lv_ok = (feats_level[..., None, :] - pred_level[..., :, None]).abs() \
+        <= level_window
     d = torch.where(within & lv_ok, d, INF)
     return match_mutual(d, max_dist=max_dist, ratio=ratio)
 

@@ -6,7 +6,9 @@ kernel runs the whole optimization (4 rounds x 10 damped Gauss-Newton
 iterations, chi2 reclassification) in one program.  On the card the
 port runs ``csrc/pose_opt.cu`` (wrapped by ``kernels/pose_opt.py``); on
 the CPU it runs :func:`pose_optimization_fused_torch`, the same
-algorithm on [E] tensors.  Both keep the Pallas kernel's own final
+algorithm on [E] tensors.  Both take a leading axis of independent
+problems (the relocalizer's candidates), which the kernel solves in one
+launch of one block per problem.  Both keep the Pallas kernel's own final
 acceptance ``sum(c2 * inl * zpos) <= best``, which differs slightly from
 ``models/optimizer.py::pose_optimization``.
 """
@@ -57,7 +59,20 @@ def pose_optimization_fused_torch(cam: CameraParams, pose0, pw, obs_uvr,
                                   level, has_stereo, valid, rounds: int = 4,
                                   iters_per_round: int = 10) -> PoseOptResult:
     """Plain PyTorch version of the fused kernel: pose0 [7], pw [E, 3],
-    obs_uvr [E, 3], level [E] int, has_stereo / valid [E] bool."""
+    obs_uvr [E, 3], level [E] int, has_stereo / valid [E] bool, or the
+    same with a leading axis of problems (pose0 [P, 7], pw [P, E, 3],
+    ...), which the kernel solves in one launch and this version one
+    problem after another."""
+    if pose0.dim() == 2:
+        res = [_fused_one(cam, *args, rounds, iters_per_round)
+               for args in zip(pose0, pw, obs_uvr, level, has_stereo, valid)]
+        return PoseOptResult(*(torch.stack(f) for f in zip(*res)))
+    return _fused_one(cam, pose0, pw, obs_uvr, level, has_stereo, valid,
+                      rounds, iters_per_round)
+
+
+def _fused_one(cam, pose0, pw, obs_uvr, level, has_stereo, valid, rounds,
+               iters_per_round):
     w_info = inv_sigma2(level)
     stf = has_stereo.to(torch.float32)
     valid_f = valid.to(torch.float32)
@@ -109,7 +124,8 @@ def pose_optimization_fused_torch(cam: CameraParams, pose0, pw, obs_uvr,
 def pose_optimization_fused(cam: CameraParams, pose0, pw, obs_uvr, level,
                             has_stereo, valid, rounds: int = 4,
                             iters_per_round: int = 10) -> PoseOptResult:
-    """Motion-only BA in one launch: CUDA tensors run the hand-written
+    """Motion-only BA of one problem ([E] edges) or of a leading axis of
+    problems ([P, E]) in one launch: CUDA tensors run the hand-written
     kernel on the tensors as they are, CPU tensors
     :func:`pose_optimization_fused_torch`."""
     if not pw.is_cuda:
@@ -120,5 +136,5 @@ def pose_optimization_fused(cam: CameraParams, pose0, pw, obs_uvr, level,
     out, n_inliers, inliers = pose_opt_cuda(
         cam, pose0, pw, obs_uvr, level, has_stereo, valid,
         w_info_table(pw.device), rounds, iters_per_round)
-    return PoseOptResult(pose=out[:7], inliers=inliers, n_inliers=n_inliers,
-                         chi2=out[7])
+    return PoseOptResult(pose=out[..., :7], inliers=inliers,
+                         n_inliers=n_inliers, chi2=out[..., 7])

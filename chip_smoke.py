@@ -36,24 +36,49 @@ Phases (each raises, and so exits nonzero, on failure):
 8. the card-vs-CPU check on three aligned keyframes, where point
    creation acts at full rate (on the orbit it creates a few points or
    none; ROADMAP queue 3, item h);
-9. timing: each kernel's device time and its plain version's, last, so
-   that the profiler's overhead cannot reach the runs before; K1 also at
-   E=128 (the fixed cost of its 44 passes) and at E=2000.
+9. K1 over a problem axis (the relocalizer's candidates): 8 noisy
+   problems at E=1024 in one launch, and an all-invalid problem beside
+   an exact one at E=1, against the plain version and bit for bit
+   against one launch per problem;
+10. relocalization after a blackout: the mapping slice's configuration
+    over frames 0-29, 3 black frames (LOST), then frames 30-41, the
+    first of which must relocalize; K1 launches per attempt counted;
+11. map reuse: the mapping slice's final map saved, loaded into a fresh
+    ``System`` in localization-only mode and tracked over frames 0-41
+    (frame 0 relocalizes, no keyframe is inserted), host syncs counted
+    on a second run; then one relocalizer call on the card against the
+    CPU on that map, with the same frame and noise;
+12. stereo at the KITTI shape of ``bench.py::stereo_kitti_shape``
+    (1226x370, 2000 features, 8 levels, baseline 0.12 m, default arena,
+    mapping on) over the first 30 of its 150 pairs (rendering time), loop
+    closing off (ROADMAP item 15); launch counts, ATE, ms/frame, peak
+    memory, host syncs on a second run, the stereo matching of one pair
+    on the card against the CPU, and K2 against its plain version on
+    all 8 levels of that pair's left image;
+13. timing: each kernel's device time and its plain version's, last, so
+    that the profiler's overhead cannot reach the runs before; K1 also at
+    E=128 (the fixed cost of its 44 passes), at E=2000 and over 8
+    problems of E=1024 in one launch, K2 also on one KITTI-shape image.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launch counts in the tracking slice, the mapping slice and the
-arena-full run (``launches``, ``mapping_launches``, ``full_launches``),
-its device time (``ms``) beside its plain version's (``plain_ms``), its
+launch counts in the tracking slice, the mapping slice, the arena-full
+run, the relocalization run, the map-reuse run and the stereo run
+(``launches``, ``mapping_launches``, ``full_launches``,
+``reloc_launches``, ``reuse_launches``, ``stereo_launches``), its
+device time (``ms``) beside its plain version's (``plain_ms``), its
 bound (``bound_ms``: the larger of its FLOP over the float32 peak and
-its bytes over the memory rate, from this run's inputs; ``bound_by``)
-and ``library_ms`` (null: no single PyTorch call computes either
-function); the last line is ``{"ok": true, "device": {...}}``.  Imports
-nothing of JAX.
+its bytes over the memory rate, from this run's inputs; ``bound_by``),
+``library_ms`` (null: no single PyTorch call computes either function)
+and the extra timings with their bounds (K1 ``ms_p8`` /
+``bound_ms_p8``, K2 ``ms_kitti`` / ``bound_ms_kitti``); the last line
+is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -78,6 +103,20 @@ CARD_CPU_POINT_ATOL_M = 1e-3
 CULL_EVENT_POINT_ATOL_M = 0.05
 FULL_MIN_CULLS = 5           # arena-full run: keyframes culled
 CREATE_MIN_POINTS = 256      # aligned keyframes: points created (cap 512)
+K1_BATCH = 8                 # relocalization candidates, one K1 launch
+N_MAPPED = 30                # blackout run: frames tracked before it
+N_BLACK = 3
+RELOC_MIN_INLIERS = 50       # the reference's acceptance
+RELOC_CARD_CPU_INLIERS = 2   # relocalizer, card vs CPU: |n_inliers| diff
+RELOC_CARD_CPU_ASSOC_AGREE = 0.99
+RELOC_CARD_CPU_POSE_ATOL = 1e-3
+N_STEREO = 30                # KITTI-shape pairs run (of bench.py's 150)
+STEREO_BASELINE_M = 0.12
+# twice the JAX package's ATE on these 30 pairs on the CPU, 0.00990 m
+# (tests/test_torch_stereo.py::test_stereo_kitti_shape_ate_beside_jax)
+STEREO_ATE_BOUND_M = 0.020
+STEREO_OK_AGREE = 0.999      # stereo matching, card vs CPU
+STEREO_UR_ATOL = 1e-3        # px
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
 # tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -248,14 +287,16 @@ def k1_problem(rng, cam, E, device, kind="noisy"):
 
 
 def k1_bound(args, rounds=4, iters=10):
-    """(bound ms, what sets it) of one K1 call on ``args``: its FLOP on
-    the valid edges over the float32 peak against its bytes (each input
-    read once, each output written once) over the memory rate."""
-    E, n_valid = args[1].shape[0], int(args[5].sum())
+    """(bound ms, what sets it) of one K1 call on ``args`` (one problem
+    or a leading axis of P): its FLOP on the valid edges over the float32
+    peak against its bytes (each input read once, each output written
+    once) over the memory rate."""
+    P, E = args[0].numel() // 7, args[1].shape[-2]
+    n_valid = int(args[5].sum())
     flops = n_valid * (rounds * iters * K1_FLOP_GN_EDGE
                        + rounds * K1_FLOP_CHI2_EDGE) \
-        + rounds * (iters + 1) * K1_FLOP_SOLVE
-    nbytes = E * K1_BYTES_EDGE + 4 * (7 + 32 + 8 + 1)
+        + P * rounds * (iters + 1) * K1_FLOP_SOLVE
+    nbytes = P * (E * K1_BYTES_EDGE + 4 * (7 + 32 + 8 + 1))
     return bound(flops, nbytes)
 
 
@@ -317,9 +358,60 @@ def phase_k1(device, cam):
     bound_ms, bound_by = k1_bound(args)
     return {"max_abs_err": worst_pose, "what": "E=1024",
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "kernel": raw(args), "variants": variants,
+            "kernel": raw(args), "variants": variants, "extra": {},
             "call": lambda: pose_optimization_fused(cam, *args),
             "plain": lambda: pose_optimization_fused_torch(cam, *args)}
+
+
+def phase_k1_batched(device, cam):
+    """K1 over a leading axis of problems, as the relocalizer calls it:
+    against the plain version, against one launch per problem (bit for
+    bit: each block runs the single problem's code) and against a rerun.
+    Returns the P=8 timing and its bound for the timing phase."""
+    import torch
+    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
+    from active_orb_slam2_tpu_torch.ops.pose_opt_kernel import (
+        pose_optimization_fused, pose_optimization_fused_torch,
+        w_info_table)
+    rng = np.random.default_rng(5)
+    batches = {
+        f"P={K1_BATCH} noisy E=1024": [k1_problem(rng, cam, 1024, device)
+                                       for _ in range(K1_BATCH)],
+        "P=2 all-invalid + exact E=1": [
+            k1_problem(rng, cam, 1, device, "invalid"),
+            k1_problem(rng, cam, 1, device, "exact")],
+    }
+    for what, problems in batches.items():
+        args = [torch.stack(a) for a in zip(*problems)]
+        res_k = pose_optimization_fused(cam, *args)
+        rerun = pose_optimization_fused(cam, *args)
+        singles = [pose_optimization_fused(cam, *p) for p in problems]
+        res_p = pose_optimization_fused_torch(cam, *args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(res_k, rerun))
+        as_single = all(torch.equal(f[i], g)
+                        for i, one in enumerate(singles)
+                        for f, g in zip(res_k, one))
+        err = float((res_k.pose - res_p.pose).abs().max())
+        agree = float((res_k.inliers == res_p.inliers).float().mean())
+        log(f"  K1 batch {what}: pose err {err:.3e} inlier agreement "
+            f"{agree:.4f} inliers {res_k.n_inliers.tolist()}/"
+            f"{res_p.n_inliers.tolist()}, rerun identical {same}, "
+            f"bit-identical to single launches {as_single}")
+        if not torch.isfinite(res_k.pose).all() or not same or not as_single \
+                or res_k.n_inliers.tolist() != res_k.inliers.sum(1).tolist():
+            raise RuntimeError(f"K1 batch {what}: non-finite, not "
+                               f"reproducible or unlike single launches")
+        if err > K1_POSE_ATOL or agree < K1_INLIER_AGREE:
+            raise RuntimeError(f"K1 batch {what} disagrees with its plain "
+                               f"version: pose err {err:.3e}, inlier "
+                               f"agreement {agree}")
+    args = [torch.stack(a) for a in zip(*batches[f"P={K1_BATCH} noisy "
+                                                 f"E=1024"])]
+    table = w_info_table(device)
+    bound_ms, _ = k1_bound(args)
+    log(f"K1 batched ok; bound at P={K1_BATCH}, E=1024: {bound_ms:.6f} ms")
+    return (lambda: pose_opt_cuda(cam, *args, table, 4, 10)), bound_ms
 
 
 def detect_frame(device, cfg, gray):
@@ -439,7 +531,7 @@ def phase_k2(device, cfg, gray):
     return {"max_abs_err": worst_ang,
             "what": "all 8 levels of one VGA frame, one launch",
             "bound_ms": bound_ms, "bound_by": bound_by, "variants": {},
-            "kernel": kernel, "call": kernel,
+            "extra": {}, "kernel": kernel, "call": kernel,
             "plain": lambda: orb.keypoint_stage_torch(levels, ys, xs, counts,
                                                       pad)}
 
@@ -462,29 +554,45 @@ def phase_timing(checks):
             f"{c['spans'][1]:.4f} ms plain")
         for k, ms in c["variant_ms"].items():
             log(f"{name} {k}: {ms:.4f} ms device time")
+        for k, ms in c["extra"].items():
+            log(f"{name} {k}: {ms:.6f} ms")
     return {name: {"max_abs_err": c["max_abs_err"], "ms": c["ms"],
                    "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                    "bound_by": c["bound_by"], "library_ms": None,
-                   **c["variant_ms"]}
+                   **c["variant_ms"], **c["extra"]}
             for name, c in checks.items()}
 
 
-def count_host_syncs(cfg, device, frames, use_mapping=False):
-    """Synchronizing CUDA calls made by a second run of a slice after
-    its warm-up frames, and the first few places that made them.  The
-    sync debug mode slows every operation, so it stays out of the timed
-    run."""
+def kernel_launches():
+    from active_orb_slam2_tpu_torch.kernels.keypoints import (
+        keypoint_stage_cuda)
+    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
+    return {"pose_opt": pose_opt_cuda.launches,
+            "keypoints": keypoint_stage_cuda.launches}
+
+
+def reset_launches():
+    from active_orb_slam2_tpu_torch.kernels.keypoints import (
+        keypoint_stage_cuda)
+    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
+    keypoint_stage_cuda.launches = 0
+    pose_opt_cuda.launches = 0
+
+
+def count_host_syncs(slam, frames, track="track_rgbd"):
+    """Synchronizing CUDA calls made by a second run of a slice (on the
+    fresh ``System`` ``slam``) after its warm-up frames, and the first
+    few places that made them.  The sync debug mode slows every
+    operation, so it stays out of the timed run."""
     import torch
-    from active_orb_slam2_tpu_torch.models.system import System
-    slam = System(cfg, use_mapping=use_mapping, device=device)
     n, where = 0, []
-    for i, (g, d) in enumerate(frames):
+    for i, images in enumerate(frames):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             if i >= WARMUP:
                 torch.cuda.set_sync_debug_mode("warn")
             try:
-                slam.track_rgbd(g, d, i / 30.0)
+                getattr(slam, track)(*images, i / 30.0)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         for w in caught:
@@ -499,15 +607,11 @@ def count_host_syncs(cfg, device, frames, use_mapping=False):
 def phase_slice(device, cfg, frames, gt):
     import torch
     from active_orb_slam2_tpu_torch.io.trajectory import camera_centers
-    from active_orb_slam2_tpu_torch.kernels.keypoints import (
-        keypoint_stage_cuda)
-    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
     from active_orb_slam2_tpu_torch.models.system import OK, System
     from active_orb_slam2_tpu_torch.utils.evaluate import umeyama_alignment
 
     slam = System(cfg, use_mapping=False, device=device)
-    keypoint_stage_cuda.launches = 0
-    pose_opt_cuda.launches = 0
+    reset_launches()
     for i, (g, d) in enumerate(frames):
         if i == WARMUP:
             slam.flush()
@@ -517,9 +621,9 @@ def phase_slice(device, cfg, frames, gt):
     slam.flush()
     torch.cuda.synchronize()
     ms_frame = (time.perf_counter() - t0) / (N_FRAMES - WARMUP) * 1e3
-    launches = {"pose_opt": pose_opt_cuda.launches,
-                "keypoints": keypoint_stage_cuda.launches}
-    n_sync_warnings, _ = count_host_syncs(cfg, device, frames)
+    launches = kernel_launches()
+    n_sync_warnings, _ = count_host_syncs(
+        System(cfg, use_mapping=False, device=device), frames)
 
     states = [m["state"] for m in slam.metrics]
     final_state = slam.state
@@ -552,8 +656,9 @@ def phase_slice(device, cfg, frames, gt):
     return launches
 
 
-def run_frames(slam, frames, timed=False):
-    """Track every frame; returns (ms/frame over frames WARMUP.. on the
+def run_frames(slam, frames, timed=False, track="track_rgbd"):
+    """Track every frame (RGB-D, or stereo pairs with ``track``
+    ``track_stereo``); returns (ms/frame over frames WARMUP.. on the
     host clock, synchronized at both ends, or None; keyframe-mapping
     calls made)."""
     import torch
@@ -566,12 +671,12 @@ def run_frames(slam, frames, timed=False):
 
     slam.keyframe_mapping = counted
     t0 = None
-    for i, (g, d) in enumerate(frames):
+    for i, images in enumerate(frames):
         if timed and i == WARMUP:
             slam.flush()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        slam.track_rgbd(g, d, i / 30.0)
+        getattr(slam, track)(*images, i / 30.0)
     slam.flush()
     torch.cuda.synchronize()
     ms = None if t0 is None else \
@@ -579,19 +684,23 @@ def run_frames(slam, frames, timed=False):
     return ms, calls
 
 
-def trajectory_ate(slam, gt):
+def trajectory_ate(slam, gt, keep=None):
+    """ATE (rigid, scale 1) of the frame trajectory against ``gt``, over
+    the trajectory's rows ``keep`` (every row by default)."""
     from active_orb_slam2_tpu_torch.io.trajectory import camera_centers
     from active_orb_slam2_tpu_torch.utils.evaluate import umeyama_alignment
     _, poses = slam.frame_trajectory()
-    if poses.shape != (N_FRAMES, 7) or not np.isfinite(poses).all():
+    keep = np.arange(len(gt)) if keep is None else np.asarray(keep)
+    if poses.shape != (keep[-1] + 1, 7) or not np.isfinite(poses).all():
         raise RuntimeError(f"trajectory malformed: {poses.shape}")
-    return umeyama_alignment(camera_centers(poses), gt, fix_scale=True)[4]
+    return umeyama_alignment(camera_centers(poses[keep]), gt,
+                             fix_scale=True)[4]
 
 
-def check_all_ok(slam, what):
+def check_all_ok(slam, what, n_tracked=N_FRAMES - 1):
     from active_orb_slam2_tpu_torch.models.system import OK
     states = [m["state"] for m in slam.metrics]
-    if len(states) != N_FRAMES - 1 or any(s != OK for s in states) \
+    if len(states) != n_tracked or any(s != OK for s in states) \
             or slam.state != OK:
         raise RuntimeError(f"{what}: not every tracked frame retired OK")
 
@@ -599,23 +708,18 @@ def check_all_ok(slam, what):
 def phase_mapping_slice(device, frames, gt):
     """``System(cfg_map).track_rgbd`` with local mapping on."""
     import torch
-    from active_orb_slam2_tpu_torch.kernels.keypoints import (
-        keypoint_stage_cuda)
-    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
     from active_orb_slam2_tpu_torch.models.system import System
     cfg = vga_config("mapping")
     slam = System(cfg, use_mapping=True, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    keypoint_stage_cuda.launches = 0
-    pose_opt_cuda.launches = 0
+    reset_launches()
     ms_frame, calls = run_frames(slam, frames, timed=True)
-    launches = {"pose_opt": pose_opt_cuda.launches,
-                "keypoints": keypoint_stage_cuda.launches}
+    launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     inliers = [m["n_inliers"] for m in slam.metrics]
     ate = trajectory_ate(slam, gt)
-    n_sync, where = count_host_syncs(cfg, device, frames, use_mapping=True)
+    n_sync, where = count_host_syncs(System(cfg, device=device), frames)
     log(f"mapping slice: {len(slam.metrics)} tracked frames, keyframes "
         f"inserted {slam.kf_seq}, live {slam.n_live_kf}, keyframe events "
         f"{len(calls)}, points {int(slam.map.pt_valid.sum())}")
@@ -779,9 +883,6 @@ def phase_arena_full(device, frames, gt):
     launch counts; then the card-vs-CPU check on the arena of its first
     keyframe-mapping call that culled a keyframe."""
     import torch
-    from active_orb_slam2_tpu_torch.kernels.keypoints import (
-        keypoint_stage_cuda)
-    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
     from active_orb_slam2_tpu_torch.models.map_state import MapState
     from active_orb_slam2_tpu_torch.models.system import System
     cfg = vga_config("full")
@@ -796,11 +897,9 @@ def phase_arena_full(device, frames, gt):
         return out
 
     slam.keyframe_mapping = snapshot
-    keypoint_stage_cuda.launches = 0
-    pose_opt_cuda.launches = 0
+    reset_launches()
     _, calls = run_frames(slam, frames)
-    launches = {"pose_opt": pose_opt_cuda.launches,
-                "keypoints": keypoint_stage_cuda.launches}
+    launches = kernel_launches()
     ate = trajectory_ate(slam, gt)
     culled = slam.kf_seq - slam.n_live_kf
     log(f"arena-full run: keyframes inserted {slam.kf_seq}, culled "
@@ -835,6 +934,314 @@ def phase_arena_full(device, frames, gt):
         raise RuntimeError("arena-full run: the culling call culled "
                            "nothing when run again")
     return launches
+
+
+class recorded_relocalizers:
+    """Inside the ``with``, a ``System`` builds relocalizers that record
+    each call: its verdict, inliers, kernel launches and its time on the
+    host clock, synchronized at both ends (``self.calls``)."""
+
+    def __enter__(self):
+        import torch
+        from active_orb_slam2_tpu_torch.models import system
+        self.calls, self._plain = [], system.build_relocalizer
+
+        def build(cfg, n_candidates):
+            relocalize = self._plain(cfg, n_candidates=n_candidates)
+
+            def recorded(*args):
+                before = kernel_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = relocalize(*args)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = kernel_launches()
+                self.calls.append({
+                    "ok": bool(res.ok), "n_inliers": int(res.n_inliers),
+                    "ms": ms, **{k: after[k] - before[k] for k in after}})
+                return res
+            return recorded
+
+        system.build_relocalizer = build
+        return self
+
+    def __exit__(self, *exc):
+        from active_orb_slam2_tpu_torch.models import system
+        system.build_relocalizer = self._plain
+
+
+def check_attempts(what, attempts):
+    """Each relocalization attempt launched K1 twice (one batched launch
+    per refinement, whatever the candidate count) and no K2."""
+    for a in attempts:
+        if a["pose_opt"] != 2 or a["keypoints"] != 0:
+            raise RuntimeError(f"{what}: a relocalization attempt launched "
+                               f"K1 {a['pose_opt']} and K2 {a['keypoints']} "
+                               f"times, expected 2 and 0")
+
+
+def phase_relocalization(device, frames, gt):
+    """Frames 0-29 with the mapping slice's configuration, 3 black frames
+    (LOST), then frames 30-41: frame 30 must relocalize and every frame
+    after it track; then the relocalizer's time on the final arena."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.relocalization import (
+        gumbel_noise)
+    from active_orb_slam2_tpu_torch.models.system import LOST, OK, System
+    cfg = vga_config("mapping")
+    black = (np.zeros_like(frames[0][0]), np.zeros_like(frames[0][1]))
+    inputs = frames[:N_MAPPED] + [black] * N_BLACK + frames[N_MAPPED:]
+    with recorded_relocalizers() as rec:
+        slam = System(cfg, device=device)
+        reset_launches()
+        for i, images in enumerate(inputs):
+            slam.track_rgbd(*images, i / 30.0)
+            if i == N_MAPPED + N_BLACK - 1 and slam.state != LOST:
+                raise RuntimeError("relocalization run: not LOST after the "
+                                   "blackout")
+        slam.flush()
+        launches = kernel_launches()
+        attempts = list(rec.calls)
+        # the relocalizer alone on the final arena, frame 30
+        frame, _ = slam.make_rgbd(*slam._upload(*frames[N_MAPPED]))
+        cands, = slam._upload(slam._reloc_candidates())
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        noise = gumbel_noise(len(cands), cfg.orb.n_features, gen, device)
+        for _ in range(5):
+            slam.relocalizer(slam.map, frame, cands, noise)
+        final = rec.calls[len(attempts):]
+    # a metrics row holds the state before its frame retired, as in the
+    # JAX package: the rows after the first black frame read LOST
+    states = {m["frame"]: m["state"] for m in slam.metrics}
+    blackout = range(N_MAPPED, N_MAPPED + N_BLACK)
+    lost_rows = range(N_MAPPED + 1, N_MAPPED + N_BLACK)
+    tracked = [i for i in range(len(inputs)) if i not in blackout]
+    ate = trajectory_ate(slam, gt, keep=tracked)
+    n_failed = sum(not a["ok"] for a in attempts)
+    log(f"relocalization run: attempts {[(a['ok'], a['n_inliers']) for a in attempts]}"
+        f", {[round(a['ms'], 2) for a in attempts]} ms (synchronized host "
+        f"clock), ATE {ate:.5f} m over the "
+        f"{len(tracked)} tracked frames, launches {launches}")
+    log(f"relocalization run: relocalizer on the final arena "
+        f"{np.median([a['ms'] for a in final]):.2f} ms per call (median of "
+        f"5, synchronized), {final[-1]['n_inliers']} inliers")
+    check_attempts("relocalization run", attempts + final)
+    if sorted(states) != list(range(1, len(inputs))) \
+            or any((states[i] == LOST) != (i in lost_rows) for i in states) \
+            or slam.state != OK:
+        raise RuntimeError(f"relocalization run: states {states}")
+    if not attempts or not attempts[-1]["ok"] or n_failed != len(attempts) - 1 \
+            or attempts[-1]["n_inliers"] <= RELOC_MIN_INLIERS:
+        raise RuntimeError(f"relocalization run: attempts {attempts}")
+    if launches["keypoints"] != len(inputs) or launches["pose_opt"] != \
+            2 * (len(inputs) - 1 - n_failed) + 2 * len(attempts):
+        raise RuntimeError(f"relocalization run: launches {launches}")
+    if not ate <= ATE_BOUND_M:
+        raise RuntimeError(f"relocalization run: ATE {ate:.5f} m above "
+                           f"{ATE_BOUND_M} m")
+    return launches
+
+
+def phase_map_reuse(device, path, frames, gt):
+    """The mapping slice's map loaded into a fresh ``System`` in
+    localization-only mode, over frames 0-41: frame 0 relocalizes, every
+    frame tracks, no keyframe is inserted; host syncs counted on a
+    second run.  Returns the System."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.system import System
+    cfg = vga_config("mapping")
+
+    def loaded():
+        slam = System(cfg, device=device)
+        slam.load_map(path)
+        slam.activate_localization_mode()
+        return slam
+    with recorded_relocalizers() as rec:
+        slam = loaded()
+        before = (slam.kf_seq, slam.n_live_kf)
+        reset_launches()
+        ms_frame, calls = run_frames(slam, frames, timed=True)
+        launches = kernel_launches()
+        attempts = list(rec.calls)
+        n_sync, where = count_host_syncs(loaded(), frames)
+    ate = trajectory_ate(slam, gt)
+    log(f"map reuse: attempts {[(a['ok'], a['n_inliers']) for a in attempts]}"
+        f" ({attempts[0]['ms']:.2f} ms), keyframes {before} -> "
+        f"{(slam.kf_seq, slam.n_live_kf)}, mapping calls {len(calls)}, ATE "
+        f"{ate:.5f} m, {ms_frame:.3f} ms/frame over frames "
+        f"{WARMUP}-{N_FRAMES - 1} (host clock, synchronized), sync warnings "
+        f"in steady state {n_sync} {where}, launches {launches}")
+    check_attempts("map reuse", attempts)
+    check_all_ok(slam, "map reuse", n_tracked=N_FRAMES)
+    if len(attempts) != 1 or not attempts[0]["ok"] \
+            or attempts[0]["n_inliers"] <= RELOC_MIN_INLIERS:
+        raise RuntimeError(f"map reuse: attempts {attempts}")
+    if (slam.kf_seq, slam.n_live_kf) != before or calls:
+        raise RuntimeError("map reuse: a keyframe was inserted")
+    if launches != {"pose_opt": 2 * N_FRAMES + 2, "keypoints": N_FRAMES}:
+        raise RuntimeError(f"map reuse: launches {launches}")
+    if not ate <= ATE_BOUND_M:
+        raise RuntimeError(f"map reuse: ATE {ate:.5f} m above {ATE_BOUND_M} m")
+    if n_sync:
+        raise RuntimeError(f"map reuse: {n_sync} synchronizing calls in the "
+                           f"steady state: {where}")
+    torch.cuda.synchronize()
+    return slam, launches
+
+
+def phase_reloc_card_vs_cpu(slam, frames):
+    """One relocalizer call on the map-reuse arena, on the card and on the
+    CPU, with frame 0 and the same noise."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.frame import FrameData
+    from active_orb_slam2_tpu_torch.models.map_state import MapState
+    from active_orb_slam2_tpu_torch.models.relocalization import (
+        build_relocalizer, gumbel_noise)
+    relocalize = build_relocalizer(slam.cfg, n_candidates=8)
+    frame, _ = slam.make_rgbd(*slam._upload(*frames[0]))
+    cands, = slam._upload(slam._reloc_candidates())
+    gen = torch.Generator(device=slam.device)
+    gen.manual_seed(1)
+    noise = gumbel_noise(8, slam.cfg.orb.n_features, gen, slam.device)
+    card = relocalize(slam.map, frame, cands, noise)
+    cpu = relocalize(MapState(*[t.cpu() for t in slam.map]),
+                     FrameData(*[t.cpu() for t in frame]), cands.cpu(),
+                     noise.cpu())
+    card = type(card)(*[t.cpu() for t in card])
+    pose_err = float((card.pose - cpu.pose).abs().max())
+    assoc_agree = float((card.assoc == cpu.assoc).float().mean())
+    log(f"relocalizer card vs CPU: ok {bool(card.ok)}/{bool(cpu.ok)}, "
+        f"inliers {int(card.n_inliers)}/{int(cpu.n_inliers)}, assoc "
+        f"agreement {assoc_agree:.4f}, pose err {pose_err:.3e}")
+    if bool(card.ok) != bool(cpu.ok) or not bool(cpu.ok) \
+            or abs(int(card.n_inliers) - int(cpu.n_inliers)) \
+            > RELOC_CARD_CPU_INLIERS \
+            or assoc_agree < RELOC_CARD_CPU_ASSOC_AGREE \
+            or pose_err > RELOC_CARD_CPU_POSE_ATOL:
+        raise RuntimeError("relocalizer: card and CPU disagree")
+
+
+def stereo_config():
+    """``bench.py::stereo_kitti_shape``: 1226x370, f=707, baseline 0.12 m,
+    2000 features, 8 levels, ThDepth 35 baselines, a keyframe at least
+    every 8 frames, the default arena."""
+    from active_orb_slam2_tpu_torch.config import (
+        MapConfig, OrbConfig, SlamConfig, TrackingConfig)
+    from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
+    w, h, f = 1226, 370, 707.0
+    cam = CameraParams(fx=f, fy=f, cx=(w - 1) / 2.0, cy=(h - 1) / 2.0,
+                       bf=f * STEREO_BASELINE_M, width=w, height=h)
+    return SlamConfig(camera=cam, orb=OrbConfig(n_features=2000, n_levels=8),
+                      tracking=TrackingConfig(th_depth=35.0 * STEREO_BASELINE_M,
+                                              kf_max_interval=8),
+                      map=MapConfig())
+
+
+def render_pairs(cam):
+    """The first ``N_STEREO`` pairs of ``bench.py``'s 150-frame circuit
+    (no boxes, radius 2.5 m, one ray a pixel); the right eye is the left
+    pose moved by the baseline along its x axis."""
+    from active_orb_slam2_tpu_torch.io.synthetic import (
+        default_world, loop_trajectory, render_rgbd)
+    world = default_world(n_boxes=0)
+    pairs, gt = [], []
+    for Twc in loop_trajectory(150, radius=2.5)[:N_STEREO]:
+        right = Twc.copy()
+        right[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array(
+            [STEREO_BASELINE_M, 0.0, 0.0], np.float32)
+        pairs.append(tuple(
+            np.clip(render_rgbd(world, cam, T, supersample=1)[0], 0,
+                    255).astype(np.uint8) for T in (Twc, right)))
+        gt.append(Twc[:3, 3].astype(np.float64))
+    return pairs, np.stack(gt)
+
+
+def phase_stereo(device):
+    """``System(cfg).track_stereo`` at the KITTI shape, then the stereo
+    matching of the first pair on the card against the CPU, and K2
+    against its plain version on the first left image.  Returns the
+    launch counts, K2's timing on that image with its bound, and K2's
+    angle error there."""
+    import torch
+    from active_orb_slam2_tpu_torch.kernels.keypoints import (
+        keypoint_stage_cuda)
+    from active_orb_slam2_tpu_torch.models.system import System
+    from active_orb_slam2_tpu_torch.ops import orb
+    from active_orb_slam2_tpu_torch.ops.stereo import compute_stereo_matches
+    cfg = stereo_config()
+    cam = cfg.camera
+    t0 = time.perf_counter()
+    pairs, gt = render_pairs(cam)
+    log(f"rendered {N_STEREO} stereo pairs {cam.width}x{cam.height} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    slam = System(cfg, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms_frame, calls = run_frames(slam, pairs, timed=True, track="track_stereo")
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ate = trajectory_ate(slam, gt)
+    inliers = [m["n_inliers"] for m in slam.metrics]
+    n_sync, where = count_host_syncs(System(cfg, device=device), pairs,
+                                     track="track_stereo")
+    log(f"stereo: {len(slam.metrics)} tracked frames, keyframes "
+        f"{slam.kf_seq}, mapping calls {len(calls)}, inliers first "
+        f"{inliers[0]} min {min(inliers)} final {inliers[-1]}, ATE "
+        f"{ate:.5f} m")
+    log(f"stereo: {ms_frame:.3f} ms/frame over frames {WARMUP}-"
+        f"{N_STEREO - 1} (host clock, synchronized), peak device memory "
+        f"{peak / 2**20:.1f} MiB, sync warnings in steady state {n_sync} "
+        f"{where}, launches {launches}")
+    check_all_ok(slam, "stereo", n_tracked=N_STEREO - 1)
+    if launches != {"pose_opt": 2 * (N_STEREO - 1), "keypoints": 2 * N_STEREO}:
+        raise RuntimeError(f"stereo: launches {launches}")
+    if not ate <= STEREO_ATE_BOUND_M:
+        raise RuntimeError(f"stereo: ATE {ate:.5f} m above "
+                           f"{STEREO_ATE_BOUND_M} m")
+    if n_sync:
+        raise RuntimeError(f"stereo: {n_sync} synchronizing calls in the "
+                           f"steady state: {where}")
+    del slam
+
+    # the stereo matching of pair 0 from the same features
+    extract = orb.build_extractor(cfg.orb, cam.height, cam.width)
+    il, ir = (torch.tensor(a, dtype=torch.float32, device=device)
+              for a in pairs[0])
+    fl, fr = extract(il), extract(ir)
+    ur_card, _ = compute_stereo_matches(cam, fl, fr, il, ir)
+    ur_cpu, _ = compute_stereo_matches(
+        cam, *(type(f)(*[t.cpu() for t in f]) for f in (fl, fr)), il.cpu(),
+        ir.cpu())
+    ur_card = ur_card.cpu()
+    ok_card, ok_cpu = ur_card >= 0, ur_cpu >= 0
+    agree = float((ok_card == ok_cpu).float().mean())
+    both = ok_card & ok_cpu
+    ur_err = float((ur_card - ur_cpu)[both].abs().max())
+    log(f"stereo matching card vs CPU: {int(ok_cpu.sum())} of "
+        f"{int(fl.valid.sum())} matched, ok agreement {agree:.4f}, ur err "
+        f"{ur_err:.3e} px")
+    if agree < STEREO_OK_AGREE or ur_err > STEREO_UR_ATOL:
+        raise RuntimeError("stereo matching: card and CPU disagree")
+
+    # K2 on one KITTI-shape image against its plain version, and for the
+    # timing phase
+    pad = cfg.orb.pad
+    _, _, taps, gauss = orb.device_constants(device)
+    levels, ys, xs, counts = detect_frame(device, cfg, pairs[0][0])
+    err, eq, n = k2_compare("KITTI-shape image", levels, ys, xs, counts, pad,
+                            taps, gauss)
+    if err > K2_ANGLE_ATOL or eq / n < K2_BIT_AGREE:
+        raise RuntimeError(f"K2 disagrees with its plain version on the "
+                           f"KITTI-shape image: angle err {err:.3e}, bit "
+                           f"agreement {eq / n:.6f}")
+    bound_ms, _ = k2_bound(levels, ys, xs, counts, pad)
+
+    def kernel():
+        return keypoint_stage_cuda(levels, ys, xs, counts, pad, taps, gauss)
+    return launches, kernel, bound_ms, err
 
 
 def main():
@@ -872,27 +1279,42 @@ def main():
 
     checks = {"pose_opt": phase_k1(device, cfg.camera),
               "keypoints": phase_k2(device, cfg, frames[0][0])}
-    launches = phase_slice(device, cfg, frames, gt)
-    map_slam, map_launches = phase_mapping_slice(device, frames, gt)
+    p8, checks["pose_opt"]["extra"]["bound_ms_p8"] = phase_k1_batched(
+        device, cfg.camera)
+    checks["pose_opt"]["variants"]["ms_p8"] = p8
+    runs = {"launches": phase_slice(device, cfg, frames, gt)}
+    map_slam, runs["mapping_launches"] = phase_mapping_slice(device, frames,
+                                                             gt)
     phase_mapping_step(map_slam)
-    del map_slam
-    full_launches = phase_arena_full(device, frames, gt)
-    phase_create_points(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        map_slam.save_map(path)
+        del map_slam
+        runs["full_launches"] = phase_arena_full(device, frames, gt)
+        phase_create_points(device)
+        runs["reloc_launches"] = phase_relocalization(device, frames, gt)
+        reuse_slam, runs["reuse_launches"] = phase_map_reuse(
+            device, path, frames, gt)
+    phase_reloc_card_vs_cpu(reuse_slam, frames)
+    del reuse_slam
+    runs["stereo_launches"], k2_kitti, \
+        checks["keypoints"]["extra"]["bound_ms_kitti"], k2_err = phase_stereo(
+            device)
+    checks["keypoints"]["variants"]["ms_kitti"] = k2_kitti
+    checks["keypoints"]["max_abs_err"] = max(
+        checks["keypoints"]["max_abs_err"], k2_err)
     times = phase_timing(checks)
 
     kernels = [
         dict(name="pose_opt", route="cuda",
              source="active_orb_slam2_tpu_torch/csrc/pose_opt.cu",
              replaces="active_orb_slam2_tpu/ops/pose_opt_kernel.py:227",
-             launches=launches["pose_opt"],
-             mapping_launches=map_launches["pose_opt"],
-             full_launches=full_launches["pose_opt"], **times["pose_opt"]),
+             **{k: v["pose_opt"] for k, v in runs.items()},
+             **times["pose_opt"]),
         dict(name="keypoints", route="cuda",
              source="active_orb_slam2_tpu_torch/csrc/keypoints.cu",
              replaces="active_orb_slam2_tpu/ops/patches.py:57",
-             launches=launches["keypoints"],
-             mapping_launches=map_launches["keypoints"],
-             full_launches=full_launches["keypoints"],
+             **{k: v["keypoints"] for k, v in runs.items()},
              **times["keypoints"]),
     ]
     print(json.dumps({"kernels": kernels}))

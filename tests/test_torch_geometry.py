@@ -57,6 +57,23 @@ def test_se3_ops_match_jax():
     _close(tse3.se3_exp(torch.from_numpy(small)), jse3.se3_exp(small))
 
 
+def test_mat_to_quat_matches_jax():
+    """Random rotations and ones near 180 degrees about each axis, where
+    the largest Shepperd candidate changes; equal up to the sign that
+    w = 0 leaves open (1e-6)."""
+    rng = np.random.default_rng(7)
+    q = np.concatenate([rng.normal(size=(200, 4)),
+                        [[1e-3, 1, 0, 0], [1e-3, 0, 1, 0], [1e-3, 0, 0, 1],
+                         [0, 1, 1, 0], [0.5, 0.5, 0.5, 0.5]]])
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    R = np.asarray(jse3.quat_to_mat(jnp.asarray(q, jnp.float32)))
+    ref = np.asarray(jse3.mat_to_quat(jnp.asarray(R)))
+    got = tse3.mat_to_quat(torch.from_numpy(R)).numpy()
+    assert (got[:, 0] >= 0).all()
+    err = np.minimum(np.abs(got - ref).max(1), np.abs(got + ref).max(1))
+    assert err.max() <= 1e-6, err.max()
+
+
 def test_projection_and_frustum_match_jax():
     rng = np.random.default_rng(1)
     jcam = jproj.CameraParams(**CAM_ARGS)

@@ -120,7 +120,8 @@ def _same_arena(a: dict, b: dict):
 def test_save_load_map_round_trip(runs, tmp_path):
     """save_map / load_map within the port and across the two packages:
     the arena arrives unchanged and the system waits LOST for
-    relocalization, which is ROADMAP item 14 in the port."""
+    relocalization; in the port the next frame relocalizes into the
+    loaded map."""
     jslam, _, tslam, _, _, frames = runs[:6]
     ck = tslam.checkpoint()
     port_file = str(tmp_path / "port.npz")
@@ -130,8 +131,8 @@ def test_save_load_map_round_trip(runs, tmp_path):
     assert back.state == tsys.LOST and back.kf_seq == tslam.kf_seq
     assert back.n_live_kf == int(ck["kf_valid"].sum())
     _same_arena(back.checkpoint(), ck)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        back.track_rgbd(*frames[0][:2], 1.0)
+    back.track_rgbd(*frames[0][:2], 1.0)
+    assert back.state == tsys.OK and back.relocalizer is not None
 
     j_from_port = jsys.System(JC)
     j_from_port.load_map(port_file)

@@ -178,3 +178,30 @@ def test_retract_matches_se3_retract():
         np.testing.assert_allclose(tkern._retract(pose, step).numpy(),
                                    tse3.se3_retract(pose, step).numpy(),
                                    atol=1e-6)
+
+
+def test_batched_plain_kernel_matches_single_calls_and_jax():
+    """The problem axis of the relocalizer's candidates: 4 noisy problems
+    of 256 edges (one with every edge invalid) in one call of the K1
+    entry against one call each (1e-6), and against the JAX reference
+    ``pose_optimization``, which the JAX relocalizer calls, at the 2e-3
+    of ``test_plain_kernel_matches_jax_reference``."""
+    problems = [noisy_problem(seed)[0] for seed in range(4)]
+    problems[3] = problems[3][:5] + (np.zeros(256, bool),)
+    batch = [torch.from_numpy(np.stack(a)) for a in zip(*problems)]
+    got = tkern.pose_optimization_fused(TCam(**CAM), *batch)
+    assert got.pose.shape == (4, 7) and got.inliers.shape == (4, 256)
+    assert got.n_inliers.dtype == torch.int32 and got.n_inliers.shape == (4,)
+    for p, args in enumerate(problems):
+        one = run_torch(tkern.pose_optimization_fused, CAM, args)
+        for f in ("pose", "chi2"):
+            np.testing.assert_allclose(getattr(got, f)[p].numpy(),
+                                       getattr(one, f).numpy(), atol=1e-6)
+        np.testing.assert_array_equal(got.inliers[p].numpy(),
+                                      one.inliers.numpy())
+        assert int(got.n_inliers[p]) == int(one.n_inliers)
+        if p < 3:
+            ref = jopt.pose_optimization(JCam(**CAM), *map(jnp.asarray, args))
+            np.testing.assert_allclose(got.pose[p].numpy(),
+                                       np.asarray(ref.pose), atol=2e-3)
+    assert int(got.n_inliers[3]) == 0

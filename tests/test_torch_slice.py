@@ -82,6 +82,8 @@ def test_port_imports_no_jax():
         "             or m.startswith(('jax.', 'jaxlib', 'active_orb_slam2_tpu.'))\n"
         "             or m == 'active_orb_slam2_tpu')\n"
         "assert not bad, bad\n"
+        "new = ('models.relocalization', 'ops.stereo')\n"
+        "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "print('clean', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -97,21 +99,22 @@ def test_not_ported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
         tsys.System(tc, use_mapping=False, use_loop_closing=True,
                     device="cpu")
-    # local mapping (the default) and map saving are ported
+    # local mapping (the default), map saving, localization-only mode and
+    # relocalization are ported
     slam = tsys.System(tc, device="cpu")
     assert slam.use_mapping
     slam.save_map(str(tmp_path / "empty.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        slam.track_stereo(None, None, 0.0)
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         slam.track_mono(None, 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        slam.activate_localization_mode()
-    # a LOST state with no relocalization raises on the next frame
+    slam.activate_localization_mode()
+    assert slam.localization_only
+    # a LOST frame with an empty map fails to relocalize: it is recorded
+    # LOST at the carried pose, with no exception
     slam._state = tsys.LOST
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        slam.track_rgbd(np.zeros((240, 320), np.uint8),
-                        np.zeros((240, 320), np.float32), 0.0)
+    slam.track_rgbd(np.zeros((240, 320), np.uint8),
+                    np.zeros((240, 320), np.float32), 0.0)
+    assert slam.state == tsys.LOST and slam.relocalizer is not None
+    assert slam.metrics[-1]["state"] == tsys.LOST
 
 
 def test_system_defaults_to_cuda():

@@ -125,3 +125,41 @@ def test_track_step_teacher_forced(records, allow_kf):
             assert sj[6] >= 0, "the JAX step inserted no keyframe"
         np.testing.assert_array_equal(
             m_t.pt_visible.numpy() > 0, np.asarray(m_j.pt_visible) > 0)
+
+
+def test_track_step_localization_mode(records):
+    """``loc_mode=True`` (insertion off, as the System runs it): the last
+    frame's close-depth features without a map point enter the motion
+    stage as temporal points.  The test checks that they do (they add
+    motion-stage inliers on both sides), then holds stats[0:8] exactly
+    and the pose to 1e-4."""
+    jstep, recs = records
+    _, tc = configs()
+    tstep = build_track_step(tc)
+    n_tmp_used = 0
+    for n, (m_np, f_np, st_np) in enumerate(recs, start=1):
+        def jax_step(loc_mode):
+            return jstep(
+                JMap(**{k: jnp.asarray(v) for k, v in m_np.items()}),
+                JFrame(**{k: jnp.asarray(v) for k, v in f_np.items()}),
+                JTrack(**{k: jnp.asarray(v) for k, v in st_np.items()}),
+                False, loc_mode)
+        st_j, stats_j, _ = jax_step(True)
+        stats_off = np.asarray(jax_step(False)[1])
+        frame_t = FrameData(**{k: convert.to_torch(v)
+                               for k, v in f_np.items()})
+        st_t, stats_t, _ = tstep(convert.map_from_jax_numpy(m_np), frame_t,
+                                 convert.track_state_from_jax_numpy(st_np),
+                                 False, loc_mode=True)
+        sj, stt = np.asarray(stats_j), stats_t.numpy()
+        np.testing.assert_array_equal(stt[:8], sj[:8], err_msg=str(n))
+        np.testing.assert_allclose(stt[8:], sj[8:], atol=1e-4)
+        np.testing.assert_allclose(st_t.pose.numpy(), np.asarray(st_j.pose),
+                                   atol=1e-4)
+        assert (st_t.assoc.numpy() == np.asarray(st_j.assoc)).mean() >= 0.99
+        assert sj[6] == -1                        # no keyframe inserted
+        prev = st_np["assoc"]
+        map_ok = (prev >= 0) & m_np["pt_valid"][np.clip(prev, 0, None)]
+        if (st_np["tmp_ok"] & ~map_ok).any():
+            n_tmp_used += int(sj[0] > stats_off[0])
+    assert n_tmp_used >= 3, n_tmp_used
