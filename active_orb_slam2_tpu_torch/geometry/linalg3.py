@@ -30,7 +30,9 @@ def inv3(A, eps: float = 0.0):
     if eps:
         floor = torch.where(det < 0, -eps, eps).to(det.dtype)
         det = torch.where(det.abs() < eps, floor, det)
-    idet = 1.0 / det
+    # reciprocal, not 1.0 / det: under torch.func a 0-d det divided into
+    # a Python float comes out float64
+    idet = torch.reciprocal(det)
     adj = torch.stack([
         torch.stack([A00, A01, A02], -1),
         torch.stack([A10, A11, A12], -1),

@@ -1,16 +1,22 @@
-"""SE(3) rigid transforms on flat tensors.
+"""SE(3) rigid and Sim(3) similarity transforms on flat tensors.
 
-Port of the SE3 half of ``active_orb_slam2_tpu/geometry/se3.py`` (Sim3
-waits for loop closing).  Same representation:
+Port of ``active_orb_slam2_tpu/geometry/se3.py``.  Same representation:
 
 * pose: 7-vector ``[qw, qx, qy, qz, tx, ty, tz]`` acting as
   ``x_out = R(q) @ x + t``; ``Tcw`` maps world -> camera.
-* tangent: ``[omega(3), nu(3)]``.
+* Sim3: 8-vector ``[qw, qx, qy, qz, tx, ty, tz, s]`` acting as
+  ``x_out = s R x + t``.
+* tangents: SE3 ``[omega(3), nu(3)]``, Sim3 ``[omega(3), nu(3), sigma]``.
 
-All functions broadcast over leading axes; float32 throughout.
+All functions broadcast over leading axes; float32 throughout.  The
+small-angle and small-scale branches are the reference's ``where``
+selections, both sides computed, so that forward-mode derivatives
+(``torch.func.jacfwd`` in the Sim3 solvers) take the selected side's.
 """
 
 import torch
+
+from active_orb_slam2_tpu_torch.geometry.linalg3 import solve3
 
 _EPS = 1e-9
 
@@ -99,6 +105,19 @@ def _so3_exp(w):
     return torch.cat([cw, k * w], dim=-1)
 
 
+def _so3_log(q):
+    """Quaternion -> so(3) vector [..., 3]."""
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)       # w >= 0 branch
+    qv = q[..., 1:]
+    sin_half = torch.sqrt((qv * qv).sum(-1, keepdim=True))
+    cos_half = q[..., :1]
+    angle = 2.0 * torch.atan2(sin_half, cos_half)
+    small = sin_half < 1e-6
+    scale = torch.where(small, 2.0 / torch.clamp(cos_half, min=_EPS),
+                        angle / torch.clamp(sin_half, min=_EPS))
+    return scale * qv
+
+
 def _hat(w):
     """[..., 3] -> skew matrix [..., 3, 3]."""
     z = torch.zeros_like(w[..., 0])
@@ -157,6 +176,13 @@ def se3_exp(delta):
     return torch.cat([q, t], dim=-1)
 
 
+def se3_log(p):
+    """SE3 [..., 7] -> twist [..., 6] = [omega, nu]."""
+    w = _so3_log(p[..., :4])
+    v = solve3(_left_jacobian_so3(w), p[..., 4:7], eps=1e-30)
+    return torch.cat([w, v], dim=-1)
+
+
 def se3_retract(p, delta):
     """Left-multiplicative update exp(delta) * p."""
     return se3_compose(se3_exp(delta), p)
@@ -172,3 +198,110 @@ def se3_to_mat44(p):
                          device=p.device)
     bottom[..., 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def mat44_to_se3(m):
+    return torch.cat([mat_to_quat(m[..., :3, :3]), m[..., :3, 3]], dim=-1)
+
+
+# ---------------------------------------------------------------------- Sim(3)
+
+def sim3_identity(shape=(), device=None):
+    out = torch.zeros(tuple(shape) + (8,), dtype=torch.float32, device=device)
+    out[..., 0] = 1.0
+    out[..., 7] = 1.0
+    return out
+
+
+def sim3_from_se3(p, s=None):
+    """SE3 [..., 7] (+ optional scale [...]) -> Sim3 [..., 8]."""
+    if s is None:
+        s = torch.ones_like(p[..., 0])
+    return torch.cat([p, s[..., None]], dim=-1)
+
+
+def sim3_to_se3(g):
+    """Drop the scale, translation divided by it (``Tiw = [R, t/s]``, the
+    reference's recovery after the essential graph)."""
+    return torch.cat([g[..., :4], g[..., 4:7] / torch.clamp(g[..., 7:8],
+                                                            min=_EPS)], dim=-1)
+
+
+def sim3_apply(g, x):
+    """x' = s R x + t."""
+    return g[..., 7:8] * quat_rotate(g[..., :4], x) + g[..., 4:7]
+
+
+def sim3_compose(a, b):
+    """(a*b)(x) = a(b(x)): R = Ra Rb, s = sa sb, t = sa Ra tb + ta."""
+    q = quat_normalize(quat_mul(a[..., :4], b[..., :4]))
+    s = a[..., 7:8] * b[..., 7:8]
+    t = a[..., 7:8] * quat_rotate(a[..., :4], b[..., 4:7]) + a[..., 4:7]
+    return torch.cat([q, t, s], dim=-1)
+
+
+def sim3_inverse(g):
+    qi = quat_conj(g[..., :4])
+    si = 1.0 / torch.clamp(g[..., 7:8], min=_EPS)
+    ti = -si * quat_rotate(qi, g[..., 4:7])
+    return torch.cat([qi, ti, si], dim=-1)
+
+
+def sim3_exp(delta):
+    """Sim3 tangent [..., 7] = [omega, nu, sigma] -> Sim3 [..., 8], with
+    the exact W-matrix form of g2o's sim3.h: t = W(omega, sigma) nu,
+    s = exp(sigma)."""
+    w, v, sig = delta[..., :3], delta[..., 3:6], delta[..., 6]
+    s = torch.exp(sig)
+    t = (_sim3_w(w, sig, s) @ v[..., None])[..., 0]
+    return torch.cat([_so3_exp(w), t, s[..., None]], dim=-1)
+
+
+def _sim3_w(w, sig, s):
+    """The W matrix [..., 3, 3] of omega [..., 3], sigma [...] and s =
+    exp(sigma), its coefficients at their limits where sigma or theta is
+    tiny."""
+    theta2 = (w * w).sum(-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    W = _hat(w)
+    W2 = W @ W
+    sig_ = sig[..., None, None]
+    s_ = s[..., None, None]
+    th_ = theta[..., None, None]
+    th2_ = theta2[..., None, None]
+    small_sig = sig_.abs() < 1e-5
+    small_th = th2_ < 1e-8
+
+    # coefficients of I, W and W^2
+    A = torch.where(small_sig, 1.0 + sig_ / 2.0,
+                    (s_ - 1.0) / torch.where(small_sig, 1.0, sig_))
+    denom = torch.clamp(sig_ * sig_ + th2_, min=_EPS)
+    sin_t, cos_t = torch.sin(th_), torch.cos(th_)
+    Bg = (s_ * sin_t * sig_ + (1.0 - s_ * cos_t) * th_) / (th_ * denom)
+    Cg = (A - ((s_ * cos_t - 1.0) * sig_ + s_ * sin_t * th_) / denom) \
+        / torch.clamp(th2_, min=_EPS)
+    B0 = (1.0 - cos_t) / torch.clamp(th2_, min=_EPS)
+    C0 = (th_ - sin_t) / torch.clamp(th2_ * th_, min=_EPS)
+    B = torch.where(small_sig, B0, Bg)
+    C = torch.where(small_sig, C0, Cg)
+    sig_safe = torch.where(small_sig, 1.0, sig_)
+    Bt = torch.where(small_sig, 0.5 + sig_ / 3.0,
+                     (s_ * sig_ - s_ + 1.0) / (sig_safe * sig_safe))
+    Ct = torch.where(small_sig, 1.0 / 6.0 + sig_ / 8.0,
+                     (s_ * (sig_ * sig_ - 2.0 * sig_ + 2.0) - 2.0)
+                     / (2.0 * sig_safe ** 3))
+    B = torch.where(small_th, Bt, B)
+    C = torch.where(small_th, Ct, C)
+
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return A * eye + B * W + C * W2
+
+
+def sim3_log(g):
+    """Sim3 [..., 8] -> tangent [..., 7]: omega and sigma in closed form,
+    nu from the 3x3 W system.  (The JAX package builds W's columns by
+    sim3_exp on the unit nu, W e_i, which is W's column exactly.)"""
+    w = _so3_log(g[..., :4])
+    sig = torch.log(torch.clamp(g[..., 7], min=_EPS))
+    v = solve3(_sim3_w(w, sig, torch.exp(sig)), g[..., 4:7], eps=1e-30)
+    return torch.cat([w, v, sig[..., None]], dim=-1)

@@ -541,15 +541,14 @@ def build_keyframe_mapping(cfg: SlamConfig):
       BA -> KeyFrameCulling
 
     with the covisibility matrix computed once at the start; every stage
-    reads it.  (The JAX package also returns the matrix of the updated
-    map, which only its loop closer reads; the port leaves it out until
-    loop closing is ported.)
+    reads it.
 
-    Returns (m, kf_slot, kf_seq) -> (m, victim, vparent, vpose, vppose);
-    ``m`` is updated in place.  ``vparent``, ``vpose`` and ``vppose`` are
-    the victim's spanning-tree parent, its pose and the parent's pose,
-    taken inside the call, since the host reads them one keyframe event
-    later.
+    Returns (m, kf_slot, kf_seq) -> (m, victim, vparent, vpose, vppose,
+    W_out); ``m`` is updated in place.  ``vparent``, ``vpose`` and
+    ``vppose`` are the victim's spanning-tree parent, its pose and the
+    parent's pose, taken inside the call, since the host reads them one
+    keyframe event later; ``W_out`` is the covisibility matrix of the
+    updated map, which the loop closer reads.
     """
     create_body = make_create_points_body(cfg)
     fuse_body = make_fuse_body(cfg)
@@ -567,6 +566,6 @@ def build_keyframe_mapping(cfg: SlamConfig):
         vpose = new.kf_pose[vc][0]
         vppose = new.kf_pose[torch.clamp(vparent, min=0).long()][0]
         write_back(m, new)
-        return m, victim, vparent[0], vpose, vppose
+        return m, victim, vparent[0], vpose, vppose, covisibility_weights(m)
 
     return keyframe_mapping

@@ -193,24 +193,35 @@ class BAResult(NamedTuple):
     chi2: torch.Tensor
 
 
+def edge_residual_jac(cam: CameraParams, pose_e, pw, obs_uvr, has_stereo):
+    """Residuals r [E, 3], pose Jacobians Jc [E, 3, 6], point Jacobians
+    Jx [E, 3, 3] and zpos [E] of edges at one pose each (pose_e [E, 7])
+    (the JAX package's ``optimizer.py::_edge_residual_jac``)."""
+    r, J, zpos = edge_terms(cam, pose_e, pw, obs_uvr,
+                            has_stereo.to(torch.float32))
+    Jc = J.permute(2, 0, 1)
+    return r.T, Jc, Jc[..., 3:6] @ quat_to_mat(pose_e[:, :4]), zpos
+
+
+def huber_weight(c2, has_stereo):
+    """IRLS weight of the Huber kernel at the reference's deltas:
+    min(1, delta / sqrt(chi2))."""
+    chi2_th = torch.where(has_stereo, CHI2_STEREO, CHI2_MONO).to(
+        torch.float32)
+    return torch.clamp(torch.sqrt(chi2_th)
+                       / torch.sqrt(torch.clamp(c2, min=1e-12)), max=1.0)
+
+
 def _ba_linearize(cam, poses, points, e: BAEdges, inliers):
     """Residuals r [E, 3], Jacobians Jc [E, 3, 6] and Jx [E, 3, 3],
     Huber IRLS weights w [E], chi2 c2 [E] and zpos [E] at the current
     estimate."""
-    pw = points[e.pt_idx]
-    pose_e = poses[e.cam_idx]
-    r, J, zpos = edge_terms(cam, pose_e, pw, e.obs_uvr,
-                            e.has_stereo.to(torch.float32))
-    r = r.T
-    Jc = J.permute(2, 0, 1)
-    Jx = Jc[..., 3:6] @ quat_to_mat(pose_e[:, :4])
+    r, Jc, Jx, zpos = edge_residual_jac(cam, poses[e.cam_idx],
+                                        points[e.pt_idx], e.obs_uvr,
+                                        e.has_stereo)
     w_info = inv_sigma2(e.level)
     c2 = w_info * (r * r).sum(-1)
-    chi2_th = torch.where(e.has_stereo, CHI2_STEREO, CHI2_MONO).to(
-        torch.float32)
-    huber = torch.clamp(torch.sqrt(chi2_th)
-                        / torch.sqrt(torch.clamp(c2, min=1e-12)), max=1.0)
-    w = w_info * huber
+    w = w_info * huber_weight(c2, e.has_stereo)
     w = torch.where(inliers & zpos, w, 0.0)
     return r, Jc, Jx, w, c2, zpos
 

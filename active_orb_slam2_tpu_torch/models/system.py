@@ -1,8 +1,9 @@
 """System: the public API and host orchestrator (RGB-D and stereo
-tracking with local mapping, relocalization, localization-only mode).
+tracking with local mapping, loop closing, relocalization,
+localization-only mode).
 
-Port of ``active_orb_slam2_tpu/models/system.py`` without loop closing
-and monocular input.  Each frame is one step on the device (ORB
+Port of ``active_orb_slam2_tpu/models/system.py`` without monocular
+input.  Each frame is one step on the device (ORB
 extraction, tracking, the
 keyframe decision and insertion) that never blocks the host; the
 per-frame stats vectors are retired in batches: the host stacks a group
@@ -22,10 +23,20 @@ the host never waits on the mapping.  An arena that is full of
 keyframes forces an eviction, which does wait on the card, as in the
 JAX package.
 
+With ``use_loop_closing`` each keyframe event then runs one step of the
+loop closer (``models/loop_closing.py``), fed the mapping call's
+covisibility matrix and the host's mirrors of the live keyframes: the
+previous event's detection is resolved, verified and corrected (these
+wait on the card), a deferred global-BA slice runs, this keyframe's
+detection is dispatched.  After a closure the carried tracking pose is
+rebased by the new keyframe's correction.
+
 A frame that arrives LOST (after a tracking failure, or the first
 frame after ``load_map``) first drains the pipeline and tries
-relocalization (``models/relocalization.py``) against the 8 newest
-keyframes; that attempt waits on the card, as the JAX package's does.
+relocalization (``models/relocalization.py``) against the 8 keyframes
+that score highest against it in BoW once the loop closer has a
+vocabulary, else the 8 newest keyframes; that attempt waits on the
+card, as the JAX package's does.
 Its solvers' one-time setup on the card runs when the ``System`` is
 built, so that the first attempt does not stall on it.  On success the
 frame is tracked by the normal step from the recovered pose; on failure
@@ -34,7 +45,7 @@ localization-only mode the step inserts no keyframe and tracks on
 temporal points where the map is out of view.
 
 What the port does not run yet raises ``NotImplementedError`` naming
-its ROADMAP item: loop closing and monocular input.
+its ROADMAP item: monocular input.
 """
 
 import json
@@ -45,7 +56,8 @@ import numpy as np
 import torch
 
 from active_orb_slam2_tpu_torch.config import SlamConfig
-from active_orb_slam2_tpu_torch.geometry.se3 import se3_to_mat44
+from active_orb_slam2_tpu_torch.geometry.se3 import (
+    se3_compose, se3_inverse, se3_to_mat44)
 from active_orb_slam2_tpu_torch.io.trajectory import (
     resolve_frame_poses, save_kitti, save_tum)
 from active_orb_slam2_tpu_torch.models import convert
@@ -53,6 +65,8 @@ from active_orb_slam2_tpu_torch.models.frame import (
     build_frame_pipeline, build_stereo_pipeline)
 from active_orb_slam2_tpu_torch.models.local_mapping import (
     build_keyframe_culling, build_keyframe_mapping)
+from active_orb_slam2_tpu_torch.models.loop_closing import (
+    LoopCloser, warm_up as warm_up_loop_closing)
 from active_orb_slam2_tpu_torch.models.map_state import empty_map
 from active_orb_slam2_tpu_torch.models.relocalization import (
     build_relocalizer, gumbel_noise, warm_up_solvers)
@@ -60,6 +74,8 @@ from active_orb_slam2_tpu_torch.models.tracking import (
     STATS_POSE, STATS_REF_FID, STATS_REF_POSE, build_create_keyframe,
     build_track_step, init_track_state)
 from active_orb_slam2_tpu_torch.utils import np_se3
+from active_orb_slam2_tpu_torch.utils.transfer import (
+    landed, synchronize, to_pinned, upload)
 
 NOT_INITIALIZED = 0
 OK = 1
@@ -74,38 +90,27 @@ def _not_ported(what: str, item: int):
         f"(ROADMAP item {item})")
 
 
-def _to_pinned(t):
-    """Start a non-blocking copy of device tensor ``t`` into pinned host
-    memory; returns (host tensor, CUDA event or None on the CPU)."""
-    if not t.is_cuda:
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
-
-
-def _landed(host, event):
-    """The host tensor of a :func:`_to_pinned` copy, once it has landed."""
-    if event is not None:
-        event.synchronize()
-    return host.numpy()
+def _rebase_pose(pose, old_ref, new_ref):
+    """A carried Tcw in loop-corrected coordinates: Tcr = pose old_ref^-1
+    is kept, so the pose moves by its reference keyframe's correction
+    (the velocity, a relative pose, is unchanged)."""
+    return se3_compose(se3_compose(pose, se3_inverse(old_ref)), new_ref)
 
 
 class System:
-    """RGB-D / stereo SLAM engine: tracking with local mapping at each
-    keyframe, relocalization and localization-only mode.
+    """RGB-D / stereo SLAM engine: tracking with local mapping and loop
+    closing at each keyframe, relocalization and localization-only mode.
 
     Runs on the CUDA card (``device``, by default ``cuda``); a CPU run
-    passes ``device="cpu"``.
+    passes ``device="cpu"``.  ``vocab_path`` names a DBoW2 text
+    vocabulary for the loop closer; without it the vocabulary is trained
+    from the map's descriptors.
     """
 
     def __init__(self, cfg: SlamConfig, use_mapping: bool = True,
                  use_loop_closing: bool = False, pipeline_depth: int = 6,
-                 retire_batch: int = 4, device=torch.device("cuda")):
-        if use_loop_closing:
-            raise _not_ported("loop closing", 15)
+                 retire_batch: int = 4, device=torch.device("cuda"),
+                 vocab_path=None):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -125,12 +130,18 @@ class System:
         self.pipeline_depth = max(int(pipeline_depth), 0)
         self.retire_batch = max(int(retire_batch), 1)
         self.localization_only = False
+        self.loop_closer = LoopCloser(cfg, vocab_path=vocab_path) \
+            if use_loop_closing else None
+        self.profile_stages = False      # synchronized per-stage times
+        self.stage_ms = {}
         self.relocalizer = None          # built at the first LOST frame
         self._reloc_gen = None           # its random numbers
         if self.device.type == "cuda":
             # the solvers' one-time setup, here and not in the first
-            # relocalization attempt
+            # relocalization attempt or loop verification
             warm_up_solvers(N_RELOC_CANDIDATES, self.device)
+            if use_loop_closing:
+                warm_up_loop_closing(cfg, self.device)
         self._clear()
 
     # ----------------------------------------------------- state / pipeline
@@ -158,7 +169,10 @@ class System:
         self._kf_ins_frames = []         # frame ids of keyframe insertions
         self._pending_culls = []         # cull snapshots not yet read
         self.n_forced_culls = 0          # arena-full evictions (they wait)
+        self.n_loops_closed = 0
         self.metrics = []                # per-frame dict
+        if self.loop_closer is not None:
+            self.loop_closer.reset_state()
 
     def reset(self):
         """``System::Reset``: drop the map and all bookkeeping and return
@@ -185,7 +199,7 @@ class System:
         group = [e for e in self._pending if e.get("batch") is None]
         if not group:
             return
-        host, event = _to_pinned(torch.stack([e["stats"] for e in group]))
+        host, event = to_pinned(torch.stack([e["stats"] for e in group]))
         batch = {"host": host, "event": event}
         for i, e in enumerate(group):
             e["batch"] = batch
@@ -276,10 +290,11 @@ class System:
         return (ts, -1, np.asarray(pose_np, np.float64))
 
     def _register_keyframe(self, k, timestamp, frame_id, n_inliers):
-        """Mirror a keyframe the device inserted and run the keyframe
-        mapping on it.  Nothing here waits on the card: the previous
-        event's cull snapshot has landed by now, and this event's is
-        read at the next one."""
+        """Mirror a keyframe the device inserted, run the keyframe mapping
+        on it, then a loop-closing step.  Nothing here waits on the card
+        but a loop verification or correction (and the vocabulary's
+        training): the previous event's cull snapshot has landed by now,
+        and this event's is read at the next one."""
         # process the previous cull before the new slot is mirrored (the
         # new keyframe may re-tenant the culled slot)
         self._process_pending_culls()
@@ -291,18 +306,37 @@ class System:
         self.last_kf_slot = k
         self.last_kf_inliers = n_inliers
         self.kf_records.append((timestamp, k))
+        W = None
         if self.use_mapping:
-            _, victim, vparent, vpose, vppose = self.keyframe_mapping(
+            t0 = time.perf_counter()
+            _, victim, vparent, vpose, vppose, W = self.keyframe_mapping(
                 self.map, k, self.kf_seq)
+            if self.profile_stages:
+                synchronize(self.device)
+                self.stage_ms["mapping"] = (time.perf_counter() - t0) * 1e3
             snap = torch.cat([torch.stack([victim, vparent]).to(vpose.dtype),
                               vpose, vppose])
-            self._pending_culls.append(_to_pinned(snap))
+            self._pending_culls.append(to_pinned(snap))
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            lc.profile = self.profile_stages
+            pre_pose_k = self.map.kf_pose[k].clone()
+            self.map, closed = lc.process_keyframe(
+                self.map, k, self.kf_seq, W=W, n_live_kf=self.n_live_kf,
+                slot_fid=self._slot_fid)
+            if self.profile_stages:
+                self.stage_ms.update(lc.stage_ms)
+                lc.stage_ms = {}
+            if closed:
+                self.n_loops_closed += 1
+                self.track = self.track._replace(pose=_rebase_pose(
+                    self.track.pose, pre_pose_k, self.map.kf_pose[k]))
 
     def _process_pending_culls(self):
         """Read the cull snapshots of earlier keyframe events (host
         bookkeeping only: the eviction happened in the mapping call)."""
         while self._pending_culls:
-            s = _landed(*self._pending_culls.pop(0))
+            s = landed(*self._pending_culls.pop(0))
             v = int(s[0])
             if v >= 0:
                 self._on_keyframe_culled(
@@ -402,13 +436,7 @@ class System:
     def _upload(self, *arrays):
         """Host numpy arrays -> device tensors, without blocking the host
         on the card (pinned memory, non-blocking copies)."""
-        out = []
-        for a in arrays:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t)
-        return out
+        return upload(self.device, *arrays)
 
     def _dispatch_track(self, frame, timestamp):
         """Enqueue one frame step; retire what has landed, and a batch if
@@ -544,10 +572,23 @@ class System:
 
     # ------------------------------------------------------ relocalization
 
-    def _reloc_candidates(self):
-        """The newest keyframes, newest first, padded with -1: from the
-        host records, or, right after ``load_map``, from the arena's
-        frame ids."""
+    def _reloc_candidates(self, frame=None):
+        """Candidate keyframe slots padded with -1: with a loop-closer
+        vocabulary, the keyframes scoring highest (> 0) against
+        ``frame``'s BoW (``DetectRelocalizationCandidates``; reads the
+        scores); else the newest keyframes, newest first, from the host
+        records, or, right after ``load_map``, from the arena's frame
+        ids."""
+        lc = self.loop_closer
+        if frame is not None and lc is not None and lc.ensure_vocabulary(
+                self.map, n_kf=self.n_live_kf) is not None:
+            scores = lc.score_query(self.map, frame.desc, frame.valid) \
+                .cpu().numpy().copy()
+            scores[~self.map.kf_valid.cpu().numpy()] = -1.0
+            cands = np.argsort(-scores, kind="stable")[
+                :N_RELOC_CANDIDATES].astype(np.int32)
+            cands[scores[cands] <= 0] = -1
+            return cands
         slots = [k for _, k in self.kf_records[-N_RELOC_CANDIDATES:]][::-1]
         if not slots:
             valid = np.flatnonzero(self.map.kf_valid.cpu().numpy())
@@ -569,7 +610,7 @@ class System:
             self._reloc_gen.manual_seed(RELOC_SEED)
         noise = gumbel_noise(N_RELOC_CANDIDATES, self.cfg.orb.n_features,
                              self._reloc_gen, self.device)
-        cands, = self._upload(self._reloc_candidates())
+        cands, = self._upload(self._reloc_candidates(frame))
         res = self.relocalizer(self.map, frame, cands, noise)
         if not bool(res.ok):
             return False
@@ -679,6 +720,9 @@ class System:
         self._cull_redirect = {}
         self._kf_ins_frames = []
         self._pending_culls = []
+        self.n_loops_closed = 0
+        if self.loop_closer is not None:
+            self.loop_closer.reset_state()
         self._last_kf_pose_np = (
             self.map.kf_pose[self.last_kf_slot].cpu().numpy()
             if self.last_kf_slot >= 0 and kf_valid[self.last_kf_slot]

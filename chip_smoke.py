@@ -55,16 +55,36 @@ Phases (each raises, and so exits nonzero, on failure):
     memory, host syncs on a second run, the stereo matching of one pair
     on the card against the CPU, and K2 against its plain version on
     all 8 levels of that pair's left image;
-13. timing: each kernel's device time and its plain version's, last, so
+13. the full pipeline with loop closing: ``System(cfg_map,
+    use_loop_closing=True).track_rgbd`` (``bench.py::full_pipeline_window``'s
+    configuration) over the 150 VGA frames of the loop circle
+    (``loop_trajectory(150, radius=2.5)``, no boxes; rendered in a
+    process pool) and frames 0-19 again: every frame tracks, the
+    vocabulary is trained, ATE, peak memory, launch counts (K1 twice a
+    frame, K2 once), loops closed, ms/frame; host syncs counted on a
+    second run outside the three waits the loop closer makes (vocabulary
+    training, a verification's verdict, a correction's gate); per-stage
+    loop times on a third run;
+14. a constructed closure at the same width: arcs 0-54 and 95-149 +
+    0-19 tracked by two ``System``s on the card, arc B's map moved by a
+    known drift and merged into arc A's, the loop closer over the last 8
+    arc-B keyframes: the loop closes within ``tests/test_loop_closing.py``'s
+    bars, the loop closer launches neither kernel, its verifications,
+    correction and a GBA slice are timed; then the card against the CPU
+    on that arena: ``compute_sim3`` with the same noise, ``correct`` with
+    the same Sim3 and one ``gba_slice``;
+15. timing: each kernel's device time and its plain version's, last, so
     that the profiler's overhead cannot reach the runs before; K1 also at
     E=128 (the fixed cost of its 44 passes), at E=2000 and over 8
     problems of E=1024 in one launch, K2 also on one KITTI-shape image.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launch counts in the tracking slice, the mapping slice, the arena-full
-run, the relocalization run, the map-reuse run and the stereo run
+run, the relocalization run, the map-reuse run, the stereo run, the
+full pipeline with loop closing and the constructed closure
 (``launches``, ``mapping_launches``, ``full_launches``,
-``reloc_launches``, ``reuse_launches``, ``stereo_launches``), its
+``reloc_launches``, ``reuse_launches``, ``stereo_launches``,
+``loop_launches``, ``closure_launches``), its
 device time (``ms``) beside its plain version's (``plain_ms``), its
 bound (``bound_ms``: the larger of its FLOP over the float32 peak and
 its bytes over the memory rate, from this run's inputs; ``bound_by``),
@@ -75,6 +95,7 @@ is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -117,6 +138,20 @@ STEREO_BASELINE_M = 0.12
 STEREO_ATE_BOUND_M = 0.020
 STEREO_OK_AGREE = 0.999      # stereo matching, card vs CPU
 STEREO_UR_ATOL = 1e-3        # px
+N_LOOP = 150                 # frames of bench.py's loop circle
+N_REVISIT = 20               # frames 0-19 tracked again after the circle
+LOOP_ATE_BOUND_M = 0.15      # tests/test_e2e_full_pipeline.py's bound
+LOOP_PEAK_BYTES = 2 ** 30
+# tests/test_loop_closing.py: arcs, the drift of arc B's world (twist),
+# the closure's bars (error after < 0.15 x before, and < 0.5)
+ARC_A, ARC_B = (0, 55), (95, N_LOOP)
+DRIFT_TWIST = [0.0, 0.06, 0.0, 0.25, 0.1, -0.15]
+CLOSURE_GAIN, CLOSURE_MAX_ERR = 0.15, 0.5
+CLOSURE_EVENTS = 8
+LC_CARD_CPU_MATCHES = 2      # compute_sim3: |guided matches| difference
+LC_CARD_CPU_SIM3_ATOL = 1e-3
+LC_CARD_CPU_POSE_ATOL = 1e-3
+LC_CARD_CPU_POINT_ATOL_M = 0.05
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
 # tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -1244,6 +1279,368 @@ def phase_stereo(device):
     return launches, kernel, bound_ms, err
 
 
+def _render_loop_frame(i):
+    """Frame i of the loop circle at VGA (runs in a worker process)."""
+    from active_orb_slam2_tpu_torch.io.synthetic import (
+        default_world, loop_trajectory, render_rgbd)
+    Twc = loop_trajectory(N_LOOP, radius=2.5)[i]
+    g, d = render_rgbd(default_world(n_boxes=0), vga_config().camera, Twc)
+    return (np.clip(g, 0, 255).astype(np.uint8),
+            np.clip(d * 1e3, 0, 65535).astype(np.uint16))
+
+
+def render_loop_frames():
+    """The 150 frames of the loop circle, rendered in a pool of fresh
+    processes (closed before it returns), and the trajectory."""
+    from active_orb_slam2_tpu_torch.io.synthetic import loop_trajectory
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+        frames = pool.map(_render_loop_frame, range(N_LOOP))
+    return frames, loop_trajectory(N_LOOP, radius=2.5)
+
+
+class wrapped_methods:
+    """Inside the ``with``, the methods ``names`` of ``obj`` are
+    ``wrap(name, method)`` (instance attributes, removed on exit)."""
+
+    def __init__(self, obj, names, wrap):
+        self.obj, self.names, self.wrap = obj, names, wrap
+
+    def __enter__(self):
+        for name in self.names:
+            setattr(self.obj, name, self.wrap(name, getattr(self.obj, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.names:
+            delattr(self.obj, name)
+
+
+def sync_waits_allowed(lc):
+    """The loop closer's three waits on the card (vocabulary training, a
+    verification's verdict, a correction's gate) run with the sync debug
+    mode off, so that only other syncs count."""
+    import torch
+
+    def quiet(name, fn):
+        def call(*args, **kw):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return call
+    return wrapped_methods(lc, ("ensure_vocabulary", "compute_sim3",
+                                "correct"), quiet)
+
+
+def timed_loop_waits(lc):
+    """Each ``compute_sim3`` and ``correct`` call of the loop closer is
+    timed on the host clock, synchronized at both ends, with the kernel
+    launches it made: the context's ``calls`` holds (name, ms, launches,
+    result)."""
+    import torch
+    calls = []
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            before = kernel_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = kernel_launches()
+            calls.append((name, ms, {k: after[k] - before[k] for k in after},
+                          out))
+            return out
+        return call
+    ctx = wrapped_methods(lc, ("compute_sim3", "correct"), timed)
+    ctx.calls = calls
+    return ctx
+
+
+def loop_inputs(frames, traj):
+    """Frames 0-149 and 0-19 again, with their ground-truth centres."""
+    order = list(range(N_LOOP)) + list(range(N_REVISIT))
+    return [frames[i] for i in order], np.stack(
+        [traj[i][:3, 3].astype(np.float64) for i in order])
+
+
+def phase_loop_pipeline(device, frames, traj):
+    """``System(cfg_map, use_loop_closing=True).track_rgbd`` over the
+    loop circle and its first 20 frames again: timed run with launch
+    counts, ATE and peak memory; a second run counting host syncs outside
+    the loop closer's waits; a third with per-stage times."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.system import System
+    cfg = vga_config("mapping")
+    inputs, gt = loop_inputs(frames, traj)
+    t0 = time.perf_counter()
+    slam = System(cfg, use_loop_closing=True, device=device)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with recorded_relocalizers() as rec, \
+            timed_loop_waits(slam.loop_closer) as waits:
+        ms_frame, calls = run_frames(slam, inputs, timed=True)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ate = trajectory_ate(slam, gt)
+    lc = slam.loop_closer
+    attempts = rec.calls
+
+    second = System(cfg, use_loop_closing=True, device=device)
+    with sync_waits_allowed(second.loop_closer):
+        n_sync, where = count_host_syncs(second, inputs)
+    del second
+
+    third = System(cfg, use_loop_closing=True, device=device)
+    third.profile_stages = True
+    stages = {}
+    for i, images in enumerate(inputs):
+        third.track_rgbd(*images, i / 30.0)
+        for k, v in third.stage_ms.items():
+            stages.setdefault(k, []).append(v)
+        third.stage_ms = {}
+    third.flush()
+    del third
+    stage_ms = {k: (round(float(np.median(v)), 3), len(v))
+                for k, v in stages.items()}
+    log(f"loop pipeline: {len(slam.metrics)} tracked frames, keyframes "
+        f"{slam.kf_seq}, live {slam.n_live_kf}, mapping calls {len(calls)}, "
+        f"vocabulary {lc.vocab is not None and lc.vocab.n_words} words, "
+        f"loops closed {slam.n_loops_closed}, candidates {lc.n_candidates}, "
+        f"verification failures {lc.n_verify_fail}, rejected "
+        f"{lc.n_rejected}, relocalization attempts {len(attempts)}; the "
+        f"System took {build_ms:.1f} ms to build (solver warm-ups included)")
+    log(f"loop pipeline: {ms_frame:.3f} ms/frame over frames {WARMUP}-"
+        f"{len(inputs) - 1} (host clock, synchronized), ATE {ate:.5f} m, "
+        f"peak device memory {peak / 2**20:.1f} MiB, sync warnings in steady "
+        f"state outside the loop closer's waits {n_sync} {where}, launches "
+        f"{launches}")
+    log(f"loop pipeline: verifications and corrections (ms, synchronized): "
+        f"{[(n, round(ms, 2), bool(out[0]) if n == 'compute_sim3' else bool(out[1])) for n, ms, _, out in waits.calls]}")
+    log(f"loop pipeline: stage ms (median, count; profiled run): {stage_ms}"
+        f"; vocabulary training in the timed run {lc.last_retrain_ms:.1f} ms "
+        f"(the later runs reuse the trained tree)")
+    check_all_ok(slam, "loop pipeline", n_tracked=len(inputs) - 1)
+    if lc.vocab is None:
+        raise RuntimeError("loop pipeline: no vocabulary was trained")
+    if launches != {"pose_opt": 2 * (len(inputs) - 1) + 2 * len(attempts),
+                    "keypoints": len(inputs)}:
+        raise RuntimeError(f"loop pipeline: launches {launches}")
+    if not ate <= LOOP_ATE_BOUND_M:
+        raise RuntimeError(f"loop pipeline: ATE {ate:.5f} m above "
+                           f"{LOOP_ATE_BOUND_M} m")
+    if peak > LOOP_PEAK_BYTES:
+        raise RuntimeError(f"loop pipeline: peak memory {peak / 2**20:.1f} "
+                           f"MiB above 1 GiB")
+    if n_sync:
+        raise RuntimeError(f"loop pipeline: {n_sync} synchronizing calls in "
+                           f"the steady state: {where}")
+    return launches
+
+
+def merge_with_drift(ckpt_a, ckpt_b, drift):
+    """``tests/test_loop_closing.py::_merge_with_drift`` on checkpoints:
+    arc B's keyframes and points appended after arc A's used slots, its
+    world moved by ``drift`` (SE3 [7]).  Returns (arena dict, Ka, Kb)."""
+    from active_orb_slam2_tpu_torch.utils import np_se3
+    a = {k: v.copy() for k, v in ckpt_a.items()}
+    b = ckpt_b
+    Ka = int(np.flatnonzero(a["kf_valid"]).max()) + 1
+    Pa = int(np.flatnonzero(a["pt_valid"]).max()) + 1
+    Kb = int(np.flatnonzero(b["kf_valid"]).max()) + 1
+    Pb = int(np.flatnonzero(b["pt_valid"]).max()) + 1
+    drift = np.asarray(drift, np.float64)
+    d_inv = np_se3.se3_inverse(drift)
+    kf, pt = slice(Ka, Ka + Kb), slice(Pa, Pa + Pb)
+    for f in ("kf_valid", "kf_frame_id", "kf_uv", "kf_ur", "kf_level",
+              "kf_angle", "kf_desc", "kf_feat_valid", "kf_depth"):
+        a[f][kf] = b[f][:Kb]
+    a["kf_pose"][kf] = np.stack([np_se3.se3_compose(p, d_inv)
+                                 for p in b["kf_pose"][:Kb]])
+    a["kf_point"][kf] = np.where(b["kf_point"][:Kb] >= 0,
+                                 b["kf_point"][:Kb] + Pa, -1)
+    a["kf_parent"][kf] = np.where(b["kf_parent"][:Kb] >= 0,
+                                  b["kf_parent"][:Kb] + Ka, -1)
+    for f in ("pt_desc", "pt_min_dist", "pt_max_dist", "pt_valid",
+              "pt_visible", "pt_found"):
+        a[f][pt] = b[f][:Pb]
+    a["pt_xyz"][pt] = np_se3.quat_rotate(drift[:4], b["pt_xyz"][:Pb]) \
+        + drift[4:7]
+    a["pt_normal"][pt] = np_se3.quat_rotate(drift[:4], b["pt_normal"][:Pb])
+    a["pt_first_kf"][pt] = b["pt_first_kf"][:Pb] + 100
+    return a, Ka, Kb
+
+
+def closure_error(pose0, pose, drift, A):
+    """The error of ``tests/test_loop_closing.py``: |log(pose truth^-1)|
+    with truth = (pose0 drift) A^-1, poses as SE3 [7]."""
+    import torch
+    from active_orb_slam2_tpu_torch.geometry.se3 import (
+        se3_compose, se3_inverse, se3_log)
+    t = [torch.as_tensor(np.asarray(x, np.float32)) for x in
+         (pose0, pose, drift, A)]
+    truth = se3_compose(se3_compose(t[0], t[2]), se3_inverse(t[3]))
+    return float(se3_log(se3_compose(t[1], se3_inverse(truth))).norm())
+
+
+def closure_arena(device, frames, traj, cfg):
+    """Arcs A and B of the loop circle tracked by two ``System``s on
+    ``device``, arc B's map moved by the drift and merged into arc A's.
+    Returns (arena dict, Ka, Kb, drift [7], A [7]: arc B's first camera in
+    arc A's world)."""
+    import torch
+    from active_orb_slam2_tpu_torch.geometry.se3 import (
+        mat44_to_se3, se3_exp)
+    from active_orb_slam2_tpu_torch.models.system import System
+    arcs = []
+    for lo, hi, extra in ((*ARC_A, 0), (*ARC_B, N_REVISIT)):
+        slam = System(cfg, device=device)
+        arc = frames[lo:hi] + frames[:extra]
+        run_frames(slam, arc)
+        check_all_ok(slam, f"closure arc {lo}-{hi - 1}", n_tracked=len(arc) - 1)
+        arcs.append(slam.checkpoint())
+        del slam
+    drift = se3_exp(torch.tensor(DRIFT_TWIST)).numpy()
+    arrays, Ka, Kb = merge_with_drift(arcs[0], arcs[1], drift)
+    A = mat44_to_se3(torch.from_numpy(
+        (np.linalg.inv(traj[ARC_A[0]]) @ traj[ARC_B[0]]).astype(
+            np.float32))).numpy()
+    return arrays, Ka, Kb, drift, A
+
+
+def close_loop(lc, m, Ka, Kb):
+    """The loop closer over the last arc-B keyframes until it closes.
+    Returns (m, events, the arena before the closing event, that event's
+    keyframe slot); the last two are None if it never closes."""
+    from active_orb_slam2_tpu_torch.models.map_state import MapState
+    events = []
+    for n, k in enumerate(range(Ka + Kb - CLOSURE_EVENTS, Ka + Kb)):
+        snap = MapState(*[x.clone() for x in m])
+        m, closed = lc.process_keyframe(m, k, kf_seq=20 + n)
+        events.append((n, closed, lc.n_candidates, lc.n_verify_fail,
+                       lc.n_rejected))
+        if closed:
+            return m, events, snap, k
+    return m, events, None, None
+
+
+def phase_closure(device, frames, traj):
+    """The constructed closure at VGA width, then the loop closer's card
+    against CPU checks on its arena."""
+    import torch
+    from active_orb_slam2_tpu_torch.models import convert
+    from active_orb_slam2_tpu_torch.models.loop_closing import LoopCloser
+    from active_orb_slam2_tpu_torch.models.map_state import (
+        MapState, covisibility_weights)
+    from active_orb_slam2_tpu_torch.models.sim3_solver import (
+        N_HYPOTHESES, gumbel_noise)
+    cfg = vga_config("mapping")
+    reset_launches()
+    arrays, Ka, Kb, drift, A = closure_arena(device, frames, traj, cfg)
+    launches = kernel_launches()
+    m = convert.map_from_jax_numpy(arrays, device)
+    lc = LoopCloser(cfg, recent_frames_guard=0)
+    with timed_loop_waits(lc) as waits:
+        m, events, before_closure, cur = close_loop(lc, m, Ka, Kb)
+    in_lc = kernel_launches()
+    verify_ms = [round(ms, 2) for n, ms, _, _ in waits.calls
+                 if n == "compute_sim3"]
+    correct_ms = [round(ms, 2) for n, ms, _, _ in waits.calls
+                  if n == "correct"]
+    log(f"closure: arcs of {ARC_A[1] - ARC_A[0]} and "
+        f"{ARC_B[1] - ARC_B[0] + N_REVISIT} frames, Ka {Ka} Kb {Kb}, "
+        f"events (n, closed, candidates, verify failures, rejected) {events}")
+    log(f"closure: verifications {verify_ms} ms, corrections {correct_ms} ms "
+        f"(synchronized; the first verification of a process includes the "
+        f"batched eigh's setup)")
+    if cur is None:
+        raise RuntimeError("closure: the loop was never closed")
+    pose0 = arrays["kf_pose"][cur]
+    err0 = closure_error(pose0, pose0, drift, A)
+    err1 = closure_error(pose0, m.kf_pose[cur].cpu().numpy(), drift, A)
+    log(f"closure: keyframe {lc.last_closure['cur_kf']} on "
+        f"{lc.last_closure['loop_kf']}, chi2 {lc.last_closure['chi2_pre']:.4f}"
+        f" -> {lc.last_closure['chi2_post']:.4f}, pose error {err0:.4f} -> "
+        f"{err1:.4f}")
+    if not (err1 < CLOSURE_GAIN * err0 and err1 < CLOSURE_MAX_ERR):
+        raise RuntimeError(f"closure: error {err0:.4f} -> {err1:.4f}")
+    if in_lc != launches:
+        raise RuntimeError(f"closure: the loop closer launched kernels: "
+                           f"{launches} -> {in_lc}")
+    # one deferred GBA slice, synchronized
+    times = []
+    for _ in range(3):
+        m2 = MapState(*[x.clone() for x in m])
+        lc.gba_remaining = 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lc.gba_slice(m2)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"closure: GBA slice (2 LM iterations, 24 CG steps) {[round(x, 2) for x in times]} ms (synchronized)")
+
+    # the card against the CPU on the closing event's arena
+    pair = (lc.last_closure["cur_kf"], lc.last_closure["loop_kf"])
+    gen = torch.Generator().manual_seed(3)
+    noise = gumbel_noise(N_HYPOTHESES, cfg.orb.n_features, gen, "cpu")
+    s_cm = torch.from_numpy(lc.last_closure["s_cm"])
+    out = {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        base = MapState(*[x.to(dev, copy=True) for x in before_closure])
+        W = covisibility_weights(base)
+        side_lc = LoopCloser(cfg, recent_frames_guard=0)
+        side_lc._noise = lambda h, n, d: noise.to(d)
+        ok, s, nm = side_lc.compute_sim3(base, *pair)
+        t0 = time.perf_counter()
+        base, accepted = side_lc.correct(base, *pair, s_cm.to(dev), W=W)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        correct_s = time.perf_counter() - t0
+        out[side] = {"ok": ok, "s": None if s is None else s.cpu(), "n": nm,
+                     "accepted": accepted, "map": MapState(*[
+                         x.cpu() for x in base]), "s_correct": correct_s}
+    card, cpu = out["card"], out["cpu"]
+    s_err = float((card["s"] - cpu["s"]).abs().max()) \
+        if card["ok"] and cpu["ok"] else 0.0
+    live, pts = cpu["map"].kf_valid, cpu["map"].pt_valid
+    pose_err = float((card["map"].kf_pose - cpu["map"].kf_pose)[live]
+                     .abs().max())
+    pt_err = float((card["map"].pt_xyz - cpu["map"].pt_xyz)[pts].abs().max())
+    # one GBA slice from the card's corrected arena, on both
+    g = {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        mm = MapState(*[x.to(dev, copy=True) for x in card["map"]])
+        side_lc = LoopCloser(cfg, recent_frames_guard=0)
+        side_lc.gba_remaining = 2
+        side_lc._gba_fixed = (pair[1], None)
+        side_lc.gba_slice(mm)
+        g[side] = mm.kf_pose.cpu()
+    gba_err = float((g["card"] - g["cpu"])[live].abs().max())
+    log(f"closure card vs CPU: compute_sim3 ok {card['ok']}/{cpu['ok']}, "
+        f"guided matches {card['n']}/{cpu['n']}, S_cm err {s_err:.3e}; "
+        f"correct accepted {card['accepted']}/{cpu['accepted']} "
+        f"({card['s_correct'] * 1e3:.1f} / {cpu['s_correct'] * 1e3:.0f} ms), "
+        f"pose err {pose_err:.3e}, point err {pt_err:.3e} m; GBA slice pose "
+        f"err {gba_err:.3e}")
+    if card["ok"] != cpu["ok"] or not cpu["ok"] \
+            or abs(card["n"] - cpu["n"]) > LC_CARD_CPU_MATCHES \
+            or s_err > LC_CARD_CPU_SIM3_ATOL:
+        raise RuntimeError("closure: compute_sim3 card and CPU disagree")
+    if card["accepted"] != cpu["accepted"] or not cpu["accepted"] \
+            or pose_err > LC_CARD_CPU_POSE_ATOL \
+            or pt_err > LC_CARD_CPU_POINT_ATOL_M:
+        raise RuntimeError("closure: correct card and CPU disagree")
+    if gba_err > LC_CARD_CPU_POSE_ATOL:
+        raise RuntimeError("closure: gba_slice card and CPU disagree")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1276,6 +1673,10 @@ def main():
     t0 = time.perf_counter()
     frames, gt = render_frames(cfg.camera)
     log(f"rendered {N_FRAMES} VGA frames in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    loop_frames, loop_traj = render_loop_frames()
+    log(f"rendered {N_LOOP} VGA frames of the loop circle in "
+        f"{time.perf_counter() - t0:.1f} s (process pool)")
 
     checks = {"pose_opt": phase_k1(device, cfg.camera),
               "keypoints": phase_k2(device, cfg, frames[0][0])}
@@ -1303,6 +1704,9 @@ def main():
     checks["keypoints"]["variants"]["ms_kitti"] = k2_kitti
     checks["keypoints"]["max_abs_err"] = max(
         checks["keypoints"]["max_abs_err"], k2_err)
+    runs["loop_launches"] = phase_loop_pipeline(device, loop_frames,
+                                                loop_traj)
+    runs["closure_launches"] = phase_closure(device, loop_frames, loop_traj)
     times = phase_timing(checks)
 
     kernels = [

@@ -82,7 +82,9 @@ def test_port_imports_no_jax():
         "             or m.startswith(('jax.', 'jaxlib', 'active_orb_slam2_tpu.'))\n"
         "             or m == 'active_orb_slam2_tpu')\n"
         "assert not bad, bad\n"
-        "new = ('models.relocalization', 'ops.stereo')\n"
+        "new = ('models.relocalization', 'ops.stereo', 'models.vocabulary',\n"
+        "       'models.sim3_solver', 'models.pose_graph', 'geometry.horn',\n"
+        "       'parallel.dist_ba', 'models.loop_closing', 'utils.transfer')\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "print('clean', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -94,11 +96,12 @@ def test_port_imports_no_jax():
 
 def test_not_ported_paths_raise(tmp_path):
     _, tc = configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tsys.System(tc, use_loop_closing=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-        tsys.System(tc, use_mapping=False, use_loop_closing=True,
-                    device="cpu")
+    # loop closing (ROADMAP item 15) is ported: the System constructs
+    # with it, with or without mapping
+    for mapping in (True, False):
+        slam = tsys.System(tc, use_mapping=mapping, use_loop_closing=True,
+                           device="cpu")
+        assert slam.loop_closer is not None and slam.n_loops_closed == 0
     # local mapping (the default), map saving, localization-only mode and
     # relocalization are ported
     slam = tsys.System(tc, device="cpu")
@@ -130,6 +133,8 @@ def test_system_defaults_to_cuda():
         tsys.System(tc)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tsys.System(tc, use_mapping=False, device="cuda")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tsys.System(tc, use_loop_closing=True)
 
 
 def test_trajectory_outputs(tmp_path):
