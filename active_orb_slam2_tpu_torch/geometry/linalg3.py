@@ -10,6 +10,16 @@ on the host.
 import torch
 
 
+def det3(m):
+    """Batched determinant of [..., 3, 3] by cofactor expansion."""
+    return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2]
+                            - m[..., 1, 2] * m[..., 2, 1])
+            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2]
+                              - m[..., 1, 2] * m[..., 2, 0])
+            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1]
+                              - m[..., 1, 1] * m[..., 2, 0]))
+
+
 def inv3(A, eps: float = 0.0):
     """Batched closed-form inverse of [..., 3, 3] via the adjugate; a
     determinant smaller than ``eps`` in magnitude is replaced by

@@ -66,7 +66,7 @@ from active_orb_slam2_tpu_torch.models.vocabulary import (
     transform_sparse)
 from active_orb_slam2_tpu_torch.ops.matching import (
     hamming_matrix, match_mutual, search_by_projection)
-from active_orb_slam2_tpu_torch.ops.topk import stable_topk
+from active_orb_slam2_tpu_torch.ops.topk import nanmedian, stable_topk
 from active_orb_slam2_tpu_torch.parallel.dist_ba import (
     build_point_major_edges, global_ba)
 from active_orb_slam2_tpu_torch.utils.transfer import (
@@ -565,17 +565,6 @@ def _sim3_center(g):
     return _se3_center(g) / torch.clamp(g[..., 7:8], min=1e-8)
 
 
-def _nanmedian(x, valid):
-    """``jnp.nanmedian`` of x over the valid entries (the mean of the two
-    middle values for an even count; NaN if none), without a host read."""
-    s = torch.sort(torch.where(valid, x, float("inf"))).values
-    n = valid.sum().view(1)
-    at = torch.cat([torch.div(n - 1, 2, rounding_mode="floor"),
-                    torch.div(n, 2, rounding_mode="floor")])
-    mid = s.index_select(0, torch.clamp(at, 0, s.shape[0] - 1)).mean()
-    return torch.where(n[0] > 0, mid, float("nan"))
-
-
 _vocab_cache = {}
 
 
@@ -807,5 +796,5 @@ def _correct_prompt(cfg: SlamConfig, m: MapState, cur_kf: int, loop_kf: int,
     disp = torch.linalg.vector_norm(_se3_center(m.kf_pose)
                                     - _sim3_center(pre_sim3), dim=-1)
     finite = torch.isfinite(m.kf_pose).all() & torch.isfinite(m.pt_xyz).all()
-    return m, torch.stack([pre_chi2, post_chi2, _nanmedian(disp, m.kf_valid),
+    return m, torch.stack([pre_chi2, post_chi2, nanmedian(disp, m.kf_valid),
                            finite.to(torch.float32)])

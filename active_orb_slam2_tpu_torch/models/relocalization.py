@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from active_orb_slam2_tpu_torch.config import SlamConfig
+from active_orb_slam2_tpu_torch.geometry.linalg3 import det3
 from active_orb_slam2_tpu_torch.geometry.projection import (
     CameraParams, predict_scale)
 from active_orb_slam2_tpu_torch.geometry.se3 import mat_to_quat, se3_apply
@@ -62,15 +63,6 @@ def _normalize(cam: CameraParams, uv):
                         (uv[..., 1] - cam.cy) / cam.fy], dim=-1)
 
 
-def _det3(m):
-    return (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2]
-                            - m[..., 1, 2] * m[..., 2, 1])
-            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2]
-                              - m[..., 1, 2] * m[..., 2, 0])
-            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1]
-                              - m[..., 1, 1] * m[..., 2, 0]))
-
-
 def _finite_or_identity(a):
     """(a with each non-finite matrix [..., n, n] replaced by the
     identity, mask [...] of the matrices that were finite)."""
@@ -97,7 +89,7 @@ def pnp_dlt(pw, xn):
     p = vecs[..., :, 0].reshape(A.shape[:-2] + (3, 4))
     M = p[..., :3]
     # scale and chirality: det(M / s) = 1
-    det_m = _det3(M)
+    det_m = det3(M)
     s = torch.sign(det_m) * det_m.abs() ** (1.0 / 3.0)
     s = torch.where(s.abs() < 1e-12, 1e-12, s)
     M = M / s[..., None, None]
@@ -105,7 +97,7 @@ def pnp_dlt(pw, xn):
     # nearest rotation by SVD, with the det flip of the last column of U
     M, ok_m = _finite_or_identity(M)
     U, _, Vh = torch.linalg.svd(M)
-    flip = torch.sign(_det3(U @ Vh))
+    flip = torch.sign(det3(U @ Vh))
     U = torch.cat([U[..., :2], U[..., 2:] * flip[..., None, None]], dim=-1)
     pose = torch.cat([mat_to_quat(U @ Vh), t], dim=-1)
     return torch.where((ok & ok_m)[..., None], pose, float("nan"))

@@ -1,10 +1,9 @@
-"""System: the public API and host orchestrator (RGB-D and stereo
-tracking with local mapping, loop closing, relocalization,
+"""System: the public API and host orchestrator (RGB-D, stereo and
+monocular tracking with local mapping, loop closing, relocalization,
 localization-only mode).
 
-Port of ``active_orb_slam2_tpu/models/system.py`` without monocular
-input.  Each frame is one step on the device (ORB
-extraction, tracking, the
+Port of ``active_orb_slam2_tpu/models/system.py``.  Each frame is one
+step on the device (ORB extraction, tracking, the
 keyframe decision and insertion) that never blocks the host; the
 per-frame stats vectors are retired in batches: the host stacks a group
 on the device, starts one non-blocking copy into pinned memory and
@@ -12,7 +11,18 @@ records a CUDA event, and runs the state machine (LOST detection,
 keyframe mapping, trajectory records) once the event has completed.
 The host therefore runs a bounded number of frames behind the device.
 ``flush()`` drains the queue; reading ``System.state`` flushes.  On the
-CPU a sealed batch is ready at once.
+CPU a sealed batch is ready at once.  As in the JAX package, monocular
+input retires every frame before the next by default (``pipeline_depth``
+0, ``retire_batch`` 1: a keyframe's new points must exist before the
+next frame tracks), so a mono frame waits on the card once, at its
+retirement; RGB-D and stereo run 6 deep in batches of 4.
+
+Monocular initialization (``MonocularInitialization``) waits on the card:
+the first frame with enough features becomes the reference, a later one
+is matched against it (``models/mono_init.py``), the homography /
+fundamental race reconstructs the pair (``models/initializer.py``, its
+Gumbel noise drawn from a generator seeded as the JAX package's
+``PRNGKey(3)``), and the two-keyframe map is written with its BA.
 
 Each keyframe the device inserted runs one keyframe-mapping call
 (``models/local_mapping.py::build_keyframe_mapping``: triangulation,
@@ -43,9 +53,6 @@ frame is tracked by the normal step from the recovered pose; on failure
 it is recorded LOST at the carried pose.  In
 localization-only mode the step inserts no keyframe and tracks on
 temporal points where the map is out of view.
-
-What the port does not run yet raises ``NotImplementedError`` naming
-its ROADMAP item: monocular input.
 """
 
 import json
@@ -63,13 +70,20 @@ from active_orb_slam2_tpu_torch.io.trajectory import (
 from active_orb_slam2_tpu_torch.models import convert
 from active_orb_slam2_tpu_torch.models.frame import (
     build_frame_pipeline, build_stereo_pipeline)
+from active_orb_slam2_tpu_torch.models.initializer import (
+    N_HYPOTHESES as INIT_HYPOTHESES, build_initializer,
+    warm_up_solvers as warm_up_initializer)
 from active_orb_slam2_tpu_torch.models.local_mapping import (
     build_keyframe_culling, build_keyframe_mapping)
 from active_orb_slam2_tpu_torch.models.loop_closing import (
     LoopCloser, warm_up as warm_up_loop_closing)
 from active_orb_slam2_tpu_torch.models.map_state import empty_map
+from active_orb_slam2_tpu_torch.models.mono_init import (
+    build_create_initial_map, build_mono_matcher)
 from active_orb_slam2_tpu_torch.models.relocalization import (
     build_relocalizer, gumbel_noise, warm_up_solvers)
+from active_orb_slam2_tpu_torch.models.sim3_solver import (
+    gumbel_noise as init_noise)
 from active_orb_slam2_tpu_torch.models.tracking import (
     STATS_POSE, STATS_REF_FID, STATS_REF_POSE, build_create_keyframe,
     build_track_step, init_track_state)
@@ -82,12 +96,10 @@ OK = 1
 LOST = 2
 N_RELOC_CANDIDATES = 8     # keyframes one relocalization attempt tries
 RELOC_SEED = 11            # the JAX package's PRNGKey(11)
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to active_orb_slam2_tpu_torch yet "
-        f"(ROADMAP item {item})")
+INIT_SEED = 3              # the JAX package's PRNGKey(3)
+MIN_INIT_FEATURES = 100    # features a mono reference frame needs
+MIN_INIT_MATCHES = 100     # matches an initialization attempt needs
+MIN_INIT_POINTS = 80       # points the initial map needs
 
 
 def _rebase_pose(pose, old_ref, new_ref):
@@ -98,18 +110,21 @@ def _rebase_pose(pose, old_ref, new_ref):
 
 
 class System:
-    """RGB-D / stereo SLAM engine: tracking with local mapping and loop
-    closing at each keyframe, relocalization and localization-only mode.
+    """RGB-D / stereo / monocular SLAM engine: tracking with local mapping
+    and loop closing at each keyframe, relocalization and
+    localization-only mode.
 
     Runs on the CUDA card (``device``, by default ``cuda``); a CPU run
     passes ``device="cpu"``.  ``vocab_path`` names a DBoW2 text
     vocabulary for the loop closer; without it the vocabulary is trained
-    from the map's descriptors.
+    from the map's descriptors.  ``pipeline_depth`` and ``retire_batch``
+    default by sensor: 0 and 1 for ``cfg.sensor == "mono"``, else 6 and
+    4.
     """
 
     def __init__(self, cfg: SlamConfig, use_mapping: bool = True,
-                 use_loop_closing: bool = False, pipeline_depth: int = 6,
-                 retire_batch: int = 4, device=torch.device("cuda"),
+                 use_loop_closing: bool = False, pipeline_depth=None,
+                 retire_batch=None, device=torch.device("cuda"),
                  vocab_path=None):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -118,7 +133,7 @@ class System:
                 "System runs on the CUDA card unless told otherwise, and "
                 "this machine has none; pass device=\"cpu\" to run on the "
                 "CPU")
-        self.make_rgbd = build_frame_pipeline(cfg)
+        self.make_rgbd, self.make_mono = build_frame_pipeline(cfg)
         self._make_stereo = None         # built at the first stereo frame
         self.track_step = build_track_step(cfg)
         self.create_kf = build_create_keyframe(cfg)
@@ -127,8 +142,15 @@ class System:
         # event; forced eviction for the arena-full path only
         self.keyframe_mapping = build_keyframe_mapping(cfg)
         self.kf_culling_forced = build_keyframe_culling(cfg, force=True)
+        mono = cfg.sensor == "mono"
+        if pipeline_depth is None:
+            pipeline_depth = 0 if mono else 6
+        if retire_batch is None:
+            retire_batch = 1 if mono else 4
         self.pipeline_depth = max(int(pipeline_depth), 0)
         self.retire_batch = max(int(retire_batch), 1)
+        # the monocular bootstrap, built at the first mono frame
+        self._mono_match = self._mono_create = self._mono_init = None
         self.localization_only = False
         self.loop_closer = LoopCloser(cfg, vocab_path=vocab_path) \
             if use_loop_closing else None
@@ -140,6 +162,8 @@ class System:
             # the solvers' one-time setup, here and not in the first
             # relocalization attempt or loop verification
             warm_up_solvers(N_RELOC_CANDIDATES, self.device)
+            if mono:
+                warm_up_initializer(self.device)
             if use_loop_closing:
                 warm_up_loop_closing(cfg, self.device)
         self._clear()
@@ -171,6 +195,8 @@ class System:
         self.n_forced_culls = 0          # arena-full evictions (they wait)
         self.n_loops_closed = 0
         self.metrics = []                # per-frame dict
+        self._ref_frame = None           # mono initialization reference
+        self._init_gen = None            # its random numbers
         if self.loop_closer is not None:
             self.loop_closer.reset_state()
 
@@ -433,6 +459,11 @@ class System:
             del self._cull_redirect[key]
         self._kf_ins_frames = [f for f in self._kf_ins_frames if f >= cutoff]
 
+    def _scalar(self, v, dtype=torch.int32):
+        """A 0-d tensor on the device (a host copy: initialization and
+        relocalization only)."""
+        return torch.tensor(v, dtype=dtype, device=self.device)
+
     def _upload(self, *arrays):
         """Host numpy arrays -> device tensors, without blocking the host
         on the card (pinned memory, non-blocking copies)."""
@@ -490,13 +521,14 @@ class System:
         if d.dtype != np.uint16:
             d = np.clip(d * 1e3, 0, 65535).astype(np.uint16)
         return self._track_frame(self.make_rgbd, self._upload(g, d),
-                                 timestamp)
+                                 timestamp, self._initialize)
 
-    def _track_frame(self, make, inputs, timestamp):
-        """Build the frame on the device and initialize or track it."""
+    def _track_frame(self, make, inputs, timestamp, initialize):
+        """Build the frame on the device and track it, or, before the map
+        exists, hand it to ``initialize(frame, n_depth, timestamp)``."""
         frame, n_depth = make(*inputs)
         if self._state == NOT_INITIALIZED:
-            pose = self._initialize(frame, int(n_depth), timestamp)
+            pose = initialize(frame, n_depth, timestamp)
             self.frame_id += 1
             return se3_to_mat44(pose)
         return self._dispatch_track(frame, timestamp)
@@ -506,7 +538,7 @@ class System:
         becomes keyframe 0 at the origin.  Runs once, so it may wait on
         the device."""
         pose = self.track.pose
-        if n_depth < 100:
+        if int(n_depth) < 100:
             self._record_frame(timestamp, pose.cpu().numpy())
             return pose
         assoc0 = torch.full((self.cfg.orb.n_features,), -1,
@@ -528,9 +560,7 @@ class System:
         self._last_kf_pose_np = self.map.kf_pose[k].cpu().numpy()
         self.kf_records.append((timestamp, k))
 
-        def scalar(v, dtype=torch.int32):
-            return torch.tensor(v, dtype=dtype, device=self.device)
-
+        scalar = self._scalar
         self.track = self.track._replace(
             assoc=self.map.kf_point[k].clone(), angle=frame.angle,
             ok=scalar(True, torch.bool), frame_id=scalar(self.frame_id + 1),
@@ -565,10 +595,81 @@ class System:
         images = [a if a.dtype == np.uint8
                   else np.clip(a, 0, 255).astype(np.uint8) for a in images]
         return self._track_frame(self._make_stereo, self._upload(*images),
-                                 timestamp)
+                                 timestamp, self._initialize)
 
     def track_mono(self, gray, timestamp: float):
-        raise _not_ported("monocular tracking", 17)
+        """Process one monocular frame ([H, W] uint8 or float 0..255);
+        returns Tcw as a 4x4 tensor on the device, as :meth:`track_rgbd`.
+        Until the map is initialized the pose is the identity."""
+        g = np.asarray(gray)
+        if g.dtype != np.uint8:
+            g = np.clip(g, 0, 255).astype(np.uint8)
+        return self._track_frame(
+            self.make_mono, self._upload(g), timestamp,
+            lambda frame, _, t: self._initialize_mono(frame, t))
+
+    def _initialize_mono(self, frame, timestamp):
+        """``MonocularInitialization``: the first frame with enough
+        features becomes the reference; a later frame with enough matches
+        to it runs the initializer, and on success the two-keyframe map
+        (keyframe 0 recorded one frame period before this frame, as in
+        the JAX package).  Waits on the card at each of its four gates."""
+        if self._mono_match is None:
+            self._mono_match = build_mono_matcher(self.cfg)
+            self._mono_create = build_create_initial_map(self.cfg)
+            self._mono_init = build_initializer(self.cfg.camera)
+        pose = self.track.pose
+
+        def not_yet():
+            self._record_frame(timestamp, pose.cpu().numpy())
+            return pose
+
+        n_valid = int(frame.valid.sum())
+        if self._ref_frame is None or n_valid < MIN_INIT_FEATURES:
+            if n_valid >= MIN_INIT_FEATURES:
+                self._ref_frame = frame
+            return not_yet()
+        ref = self._ref_frame
+        match_idx, n_matches = self._mono_match(ref, frame)
+        if int(n_matches) < MIN_INIT_MATCHES:
+            self._ref_frame = frame
+            return not_yet()
+        if self._init_gen is None:
+            self._init_gen = torch.Generator(device=self.device)
+            self._init_gen.manual_seed(INIT_SEED)
+        noise = init_noise(INIT_HYPOTHESES, match_idx.shape[0],
+                           self._init_gen, self.device)
+        res = self._mono_init(noise, ref.uv,
+                              frame.uv[torch.clamp(match_idx, min=0).long()],
+                              match_idx >= 0)
+        if not bool(res.ok):
+            return not_yet()
+        self.map, kp1, pose2, n_pts = self._mono_create(
+            self.map, ref, frame, res.pose2, res.points, res.point_ok,
+            match_idx)
+        n_pts = int(n_pts)
+        if n_pts < MIN_INIT_POINTS:
+            return not_yet()
+        # the keyframes' frame ids are their slots (copied for parity)
+        self.kf_seq = self.n_live_kf = 2
+        self._live_slots.update((0, 1))
+        self._slot_fid.update({0: 0, 1: 1})
+        self._kf_ins_frames.extend([0, 1])
+        self.last_kf_slot = 1
+        self.last_kf_inliers = n_pts
+        self.kf_records += [(timestamp - 1.0 / 30.0, 0), (timestamp, 1)]
+
+        scalar = self._scalar
+        self.track = self.track._replace(
+            pose=pose2, assoc=kp1, angle=frame.angle,
+            ok=scalar(True, torch.bool), vel_ok=scalar(False, torch.bool),
+            frame_id=scalar(self.frame_id + 1), kf_seq=scalar(self.kf_seq),
+            last_kf_slot=scalar(1), last_kf_inliers=scalar(n_pts),
+            frames_since_kf=scalar(0))
+        self._state = OK
+        self._last_kf_pose_np = self.map.kf_pose[1].cpu().numpy()
+        self._record_frame(timestamp, pose2.cpu().numpy())
+        return pose2
 
     # ------------------------------------------------------ relocalization
 
@@ -615,9 +716,7 @@ class System:
         if not bool(res.ok):
             return False
 
-        def scalar(v, dtype=torch.int32):
-            return torch.tensor(v, dtype=dtype, device=self.device)
-
+        scalar = self._scalar
         self.track = self.track._replace(
             pose=res.pose, assoc=res.assoc, angle=frame.angle,
             vel_ok=scalar(False, torch.bool), ok=scalar(True, torch.bool),

@@ -73,7 +73,19 @@ Phases (each raises, and so exits nonzero, on failure):
     correction and a GBA slice are timed; then the card against the CPU
     on that arena: ``compute_sim3`` with the same noise, ``correct`` with
     the same Sim3 and one ``gba_slice``;
-15. timing: each kernel's device time and its plain version's, last, so
+15. monocular SLAM at full width: ``System(SlamConfig(sensor="mono"),
+    use_loop_closing=True).track_mono`` (VGA, 1024 features, 8 levels,
+    default arena) over 60 VGA frames of ``tests/test_e2e_mono.py``'s
+    orbit (``orbit_trajectory(60, radius=2.0, step_deg=2.0)`` on
+    ``default_world()``, rendered in a process pool): it initializes and
+    tracks every later frame, at least 2 keyframes and more than 100
+    points, Sim3 ATE <= 0.05 m, K2 once a frame and K1 twice a tracked
+    frame (and per relocalization attempt), peak memory, ms/frame and
+    the initialization attempt's ms; host syncs counted on a second run
+    apart from the initialization attempts and the one retirement wait a
+    mono frame makes; the initializer and the initial map on the card
+    against the CPU from the same inputs and noise;
+16. timing: each kernel's device time and its plain version's, last, so
     that the profiler's overhead cannot reach the runs before; K1 also at
     E=128 (the fixed cost of its 44 passes), at E=2000 and over 8
     problems of E=1024 in one launch, K2 also on one KITTI-shape image.
@@ -81,10 +93,10 @@ Phases (each raises, and so exits nonzero, on failure):
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launch counts in the tracking slice, the mapping slice, the arena-full
 run, the relocalization run, the map-reuse run, the stereo run, the
-full pipeline with loop closing and the constructed closure
-(``launches``, ``mapping_launches``, ``full_launches``,
+full pipeline with loop closing, the constructed closure and the mono
+run (``launches``, ``mapping_launches``, ``full_launches``,
 ``reloc_launches``, ``reuse_launches``, ``stereo_launches``,
-``loop_launches``, ``closure_launches``), its
+``loop_launches``, ``closure_launches``, ``mono_launches``), its
 device time (``ms``) beside its plain version's (``plain_ms``), its
 bound (``bound_ms``: the larger of its FLOP over the float32 peak and
 its bytes over the memory rate, from this run's inputs; ``bound_by``),
@@ -152,6 +164,14 @@ LC_CARD_CPU_MATCHES = 2      # compute_sim3: |guided matches| difference
 LC_CARD_CPU_SIM3_ATOL = 1e-3
 LC_CARD_CPU_POSE_ATOL = 1e-3
 LC_CARD_CPU_POINT_ATOL_M = 0.05
+N_MONO = 60                  # frames of tests/test_e2e_mono.py's orbit at VGA
+MONO_ATE_BOUND_M = 0.05      # tests/test_e2e_mono.py's bound (Sim3)
+MONO_MIN_POINTS = 100
+MONO_PEAK_BYTES = 2 ** 30
+INIT_CARD_CPU_ROT_RAD = 1e-3   # initializer, card vs CPU
+INIT_CARD_CPU_DIR = 1e-3       # translation direction (unit vectors)
+INIT_CARD_CPU_POINT_OK = 0.99
+INIT_MAP_CARD_CPU_ATOL = 1e-3  # initial map: points and pose, after gauge
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
 # tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -693,7 +713,8 @@ def phase_slice(device, cfg, frames, gt):
 
 def run_frames(slam, frames, timed=False, track="track_rgbd"):
     """Track every frame (RGB-D, or stereo pairs with ``track``
-    ``track_stereo``); returns (ms/frame over frames WARMUP.. on the
+    ``track_stereo``, or 1-tuples of gray images with ``track_mono``);
+    returns (ms/frame over frames WARMUP.. on the
     host clock, synchronized at both ends, or None; keyframe-mapping
     calls made)."""
     import torch
@@ -1641,6 +1662,219 @@ def phase_closure(device, frames, traj):
     return launches
 
 
+def _render_mono_frame(i):
+    """Frame i of the mono orbit at VGA (runs in a worker process)."""
+    from active_orb_slam2_tpu_torch.config import SlamConfig
+    from active_orb_slam2_tpu_torch.io.synthetic import (
+        default_world, orbit_trajectory, render_rgbd)
+    Twc = orbit_trajectory(N_MONO, radius=2.0, step_deg=2.0)[i]
+    g, _ = render_rgbd(default_world(), SlamConfig(sensor="mono").camera, Twc)
+    return np.clip(g, 0, 255).astype(np.uint8)
+
+
+def render_mono_frames():
+    """``tests/test_e2e_mono.py``'s scene at VGA: 60 frames of
+    ``orbit_trajectory(60, radius=2.0, step_deg=2.0)`` on
+    ``default_world()``, rendered in a pool of fresh processes; (gray
+    frames, ground-truth centres)."""
+    from active_orb_slam2_tpu_torch.io.synthetic import orbit_trajectory
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+        frames = pool.map(_render_mono_frame, range(N_MONO))
+    traj = orbit_trajectory(N_MONO, radius=2.0, step_deg=2.0)
+    return frames, np.stack([T[:3, 3].astype(np.float64) for T in traj])
+
+
+class mono_waits:
+    """Inside the ``with``, the ``System``'s monocular initialization
+    attempts run with the sync debug mode off and are timed on the host
+    clock, synchronized at both ends (``calls``: (ms, initialized)), and
+    its retirements are counted (``retirements``): the two places a mono
+    frame may wait on the card."""
+
+    def __init__(self, slam):
+        self.slam, self.calls, self.retirements = slam, [], 0
+
+    def __enter__(self):
+        import torch
+        init, fetch = self.slam._initialize_mono, self.slam._fetch_stats
+
+        def initialize(frame, timestamp):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = init(frame, timestamp)
+                torch.cuda.synchronize()
+                self.calls.append(((time.perf_counter() - t0) * 1e3,
+                                   self.slam._state == 1))
+                return out
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+        def fetch_stats(entries):
+            self.retirements += 1
+            return fetch(entries)
+
+        self.slam._initialize_mono = initialize
+        self.slam._fetch_stats = fetch_stats
+        return self
+
+    def __exit__(self, *exc):
+        del self.slam._initialize_mono, self.slam._fetch_stats
+
+
+def rotation_angle(qa, qb):
+    """Angle (rad) between two unit quaternions [4] (numpy)."""
+    return 2.0 * float(np.arccos(np.clip(abs(np.dot(qa, qb)), 0.0, 1.0)))
+
+
+def init_card_vs_cpu(cfg, frames, device):
+    """The initializer and the initial map on the card against the CPU
+    from the same inputs: frames 0 and 1 built and matched on the card,
+    the noise of the ``System``'s first draw (a generator seeded 3)."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.frame import build_frame_pipeline
+    from active_orb_slam2_tpu_torch.models.initializer import (
+        N_HYPOTHESES, build_initializer)
+    from active_orb_slam2_tpu_torch.models.map_state import empty_map
+    from active_orb_slam2_tpu_torch.models.mono_init import (
+        build_create_initial_map, build_mono_matcher)
+    from active_orb_slam2_tpu_torch.models.sim3_solver import gumbel_noise
+    from active_orb_slam2_tpu_torch.models.system import INIT_SEED
+    _, make_mono = build_frame_pipeline(cfg)
+    f0, f1 = (make_mono(torch.from_numpy(g).to(device))[0]
+              for g in frames[:2])
+    idx, _ = build_mono_matcher(cfg)(f0, f1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(INIT_SEED)
+    noise = gumbel_noise(N_HYPOTHESES, idx.shape[0], gen, device)
+    args = (noise, f0.uv, f1.uv[torch.clamp(idx, min=0).long()], idx >= 0)
+    init = build_initializer(cfg.camera)
+    card = init(*args)
+    cpu = init(*(a.cpu() for a in args))
+    for name, a, b in (("ok", card.ok, cpu.ok), ("used_h", card.used_h,
+                                                 cpu.used_h)):
+        if bool(a) != bool(b):
+            raise RuntimeError(f"initializer card vs CPU: {name} "
+                               f"{bool(a)} vs {bool(b)}")
+    if not bool(card.ok):
+        raise RuntimeError("initializer: frames 0 and 1 do not initialize")
+    pa, pb = card.pose2.cpu().numpy(), cpu.pose2.numpy()
+    rot = rotation_angle(pa[:4], pb[:4])
+    ta, tb = (t / np.linalg.norm(t) for t in (pa[4:], pb[4:]))
+    tdir = float(np.linalg.norm(ta - tb))
+    ok_agree = float((card.point_ok.cpu() == cpu.point_ok).float().mean())
+    create = build_create_initial_map(cfg)
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        m = empty_map(cfg.map, cfg.orb, dev)
+        fr = [type(f0)(*(t.to(dev) for t in f)) for f in (f0, f1)]
+        outs.append(create(m, *fr, card.pose2.to(dev), card.points.to(dev),
+                           card.point_ok.to(dev), idx.to(dev)))
+    (mc, kc, pc, nc), (mh, kh, ph, nh) = outs
+    pts = float((mc.pt_xyz.cpu() - mh.pt_xyz).abs().max())
+    pose = float((pc.cpu() - ph).abs().max())
+    log(f"mono init card vs CPU: ok {bool(card.ok)}, homography "
+        f"{bool(card.used_h)}, rotation {rot:.3e} rad, translation "
+        f"direction {tdir:.3e}, point flags equal {ok_agree:.4f}; initial "
+        f"map: points {int(nc)} / {int(nh)}, kf_point equal "
+        f"{bool((kc.cpu() == kh).all())}, max point difference {pts:.3e}, "
+        f"pose {pose:.3e}")
+    if rot > INIT_CARD_CPU_ROT_RAD or tdir > INIT_CARD_CPU_DIR \
+            or ok_agree < INIT_CARD_CPU_POINT_OK:
+        raise RuntimeError("initializer: card and CPU disagree")
+    if int(nc) != int(nh) or pts > INIT_MAP_CARD_CPU_ATOL \
+            or pose > INIT_MAP_CARD_CPU_ATOL:
+        raise RuntimeError("initial map: card and CPU disagree")
+
+
+def phase_mono(device, frames, gt):
+    """``System(SlamConfig(sensor="mono"), use_loop_closing=True)
+    .track_mono`` over the 60 VGA frames (timed, launches counted), a
+    second run counting host syncs outside the initialization and the
+    per-frame retirement, then the initializer and the initial map card
+    against CPU."""
+    import torch
+    from active_orb_slam2_tpu_torch.config import SlamConfig
+    from active_orb_slam2_tpu_torch.io.trajectory import camera_centers
+    from active_orb_slam2_tpu_torch.models.system import OK, System
+    from active_orb_slam2_tpu_torch.utils.evaluate import umeyama_alignment
+    cfg = SlamConfig(sensor="mono")
+    t0 = time.perf_counter()
+    slam = System(cfg, use_loop_closing=True, device=device)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with recorded_relocalizers() as rec, mono_waits(slam) as waits:
+        ms_frame, calls = run_frames(slam, [(g,) for g in frames], timed=True,
+                                     track="track_mono")
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    attempts = rec.calls
+    tracked = len(slam.metrics)
+    states = [m["state"] for m in slam.metrics]
+    _, poses = slam.frame_trajectory()
+    est = camera_centers(poses)
+    moved = np.linalg.norm(est, axis=1) > 1e-6
+    ate = umeyama_alignment(est[moved], gt[moved], fix_scale=False)[4] \
+        if moved.sum() >= 3 else float("inf")
+    n_points = int(slam.map.pt_valid.sum())
+
+    second = System(cfg, use_loop_closing=True, device=device)
+    with sync_waits_allowed(second.loop_closer), \
+            mono_waits(second) as waits2:
+        n_sync, where = count_host_syncs(second, [(g,) for g in frames],
+                                         track="track_mono")
+    del second
+    init_ms = [round(ms, 2) for ms, _ in waits.calls]
+    log(f"mono: {tracked} tracked frames after {len(waits.calls)} "
+        f"initialization attempts ({init_ms} ms, synchronized; the "
+        f"successful one {[round(ms, 2) for ms, ok in waits.calls if ok]} "
+        f"ms), keyframes {slam.kf_seq}, live {slam.n_live_kf}, points "
+        f"{n_points}, mapping calls {len(calls)}, vocabulary "
+        f"{slam.loop_closer.vocab is not None and slam.loop_closer.vocab.n_words}"
+        f" words, loop candidates {slam.loop_closer.n_candidates} (free "
+        f"scale: {not slam.loop_closer.fix_scale}), loops closed "
+        f"{slam.n_loops_closed}, relocalization attempts {len(attempts)}; "
+        f"the System took {build_ms:.1f} ms to build (solver warm-ups "
+        f"included)")
+    log(f"mono: {ms_frame:.3f} ms/frame over frames {WARMUP}-{N_MONO - 1} "
+        f"(host clock, synchronized; a 30 Hz camera gives 33.3), Sim3 ATE "
+        f"{ate:.5f} m over {int(moved.sum())} frames after initialization, "
+        f"peak device memory {peak / 2**20:.1f} MiB, launches {launches}")
+    log(f"mono: second run: {len(waits2.calls)} initialization attempts and "
+        f"{waits2.retirements} retirements waited (allowed), sync warnings "
+        f"elsewhere {n_sync} {where}")
+    if not any(ok for _, ok in waits.calls) or slam.state != OK \
+            or any(s != OK for s in states[1:]):
+        raise RuntimeError(f"mono: did not initialize or lost track: "
+                           f"states {states}")
+    if tracked + len(waits.calls) != N_MONO:
+        raise RuntimeError(f"mono: {tracked} tracked + {len(waits.calls)} "
+                           f"initialization frames, expected {N_MONO}")
+    if slam.loop_closer.fix_scale:
+        raise RuntimeError("mono: the loop closer fixes the scale")
+    if slam.kf_seq < 2 or n_points <= MONO_MIN_POINTS:
+        raise RuntimeError(f"mono: {slam.kf_seq} keyframes, {n_points} "
+                           f"points")
+    if not ate <= MONO_ATE_BOUND_M:
+        raise RuntimeError(f"mono: ATE {ate:.5f} m above {MONO_ATE_BOUND_M}")
+    if launches != {"pose_opt": 2 * (tracked + len(attempts)),
+                    "keypoints": N_MONO}:
+        raise RuntimeError(f"mono: launches {launches}")
+    if peak > MONO_PEAK_BYTES:
+        raise RuntimeError(f"mono: peak memory {peak / 2**20:.1f} MiB above "
+                           f"1 GiB")
+    if n_sync or waits2.retirements > N_MONO:
+        raise RuntimeError(f"mono: {n_sync} synchronizing calls outside the "
+                           f"allowed waits: {where}")
+    init_card_vs_cpu(cfg, frames, device)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1677,6 +1911,10 @@ def main():
     loop_frames, loop_traj = render_loop_frames()
     log(f"rendered {N_LOOP} VGA frames of the loop circle in "
         f"{time.perf_counter() - t0:.1f} s (process pool)")
+    t0 = time.perf_counter()
+    mono_frames, mono_gt = render_mono_frames()
+    log(f"rendered {N_MONO} VGA frames of the mono orbit in "
+        f"{time.perf_counter() - t0:.1f} s (process pool)")
 
     checks = {"pose_opt": phase_k1(device, cfg.camera),
               "keypoints": phase_k2(device, cfg, frames[0][0])}
@@ -1707,6 +1945,7 @@ def main():
     runs["loop_launches"] = phase_loop_pipeline(device, loop_frames,
                                                 loop_traj)
     runs["closure_launches"] = phase_closure(device, loop_frames, loop_traj)
+    runs["mono_launches"] = phase_mono(device, mono_frames, mono_gt)
     times = phase_timing(checks)
 
     kernels = [

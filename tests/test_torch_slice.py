@@ -2,6 +2,7 @@
 running beside the JAX package's on the orbit of ``test_e2e_rgbd.py``,
 and the check that the port runs without JAX."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -84,7 +85,12 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "new = ('models.relocalization', 'ops.stereo', 'models.vocabulary',\n"
         "       'models.sim3_solver', 'models.pose_graph', 'geometry.horn',\n"
-        "       'parallel.dist_ba', 'models.loop_closing', 'utils.transfer')\n"
+        "       'parallel.dist_ba', 'models.loop_closing', 'utils.transfer',\n"
+        "       'models.initializer', 'models.mono_init', 'io.datasets',\n"
+        "       'io.native', 'utils.evaluate', 'examples.run_mono_tum',\n"
+        "       'examples.run_tum_rgbd', 'examples.run_kitti_mono',\n"
+        "       'examples.run_kitti_stereo', 'examples.run_euroc_mono',\n"
+        "       'examples.run_euroc_stereo', 'examples.run_synthetic')\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "print('clean', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -107,8 +113,14 @@ def test_not_ported_paths_raise(tmp_path):
     slam = tsys.System(tc, device="cpu")
     assert slam.use_mapping
     slam.save_map(str(tmp_path / "empty.npz"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        slam.track_mono(None, 0.0)
+    # monocular input (ROADMAP item 17) is ported: a black mono frame
+    # leaves the state NOT_INITIALIZED, and a mono System retires each
+    # frame before the next
+    mono = tsys.System(dataclasses.replace(tc, sensor="mono"), device="cpu")
+    assert (mono.pipeline_depth, mono.retire_batch) == (0, 1)
+    assert (slam.pipeline_depth, slam.retire_batch) == (6, 4)
+    mono.track_mono(np.zeros((240, 320), np.uint8), 0.0)
+    assert mono.state == tsys.NOT_INITIALIZED and mono.kf_seq == 0
     slam.activate_localization_mode()
     assert slam.localization_only
     # a LOST frame with an empty map fails to relocalize: it is recorded
