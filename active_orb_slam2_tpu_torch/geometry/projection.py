@@ -87,12 +87,14 @@ def in_frustum(cam: CameraParams, Tcw, pw, normal, min_dist, max_dist,
                view_cos_limit: float = 0.5, margin: float = 0.0):
     """Vectorized ``Frame::isInFrustum`` over the point arena.
 
-    Returns (visible [N] bool, uv [N, 2], depth [N], dist [N],
-    view_cos [N]).
+    ``Tcw`` is one pose [7], or poses [..., 1, 7] that broadcast against
+    the points [N] (the active layer's scorer passes [Q, 1, 7]).
+    Returns (visible [..., N] bool, uv [..., N, 2], depth, dist and
+    view_cos [..., N]).
     """
     pc = se3_apply(Tcw, pw)
     uv, z = project(cam, pc)
-    ow = -quat_rotate(quat_conj(Tcw[:4]), Tcw[4:7])
+    ow = -quat_rotate(quat_conj(Tcw[..., :4]), Tcw[..., 4:7])
     po = pw - ow
     dist = torch.linalg.vector_norm(po, dim=-1)
     view_cos = (po * normal).sum(-1) / torch.clamp(dist, min=1e-9)

@@ -95,6 +95,12 @@ def mat_to_quat(m):
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quat_from_axis_angle(axis, angle):
+    """Unit axis [..., 3], angle [...] -> quaternion."""
+    half = 0.5 * angle[..., None]
+    return torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)
+
+
 def _so3_exp(w):
     """so(3) vector [..., 3] -> quaternion, Taylor-safe near zero."""
     theta2 = (w * w).sum(-1, keepdim=True)

@@ -59,9 +59,10 @@ Phases (each raises, and so exits nonzero, on failure):
     use_loop_closing=True).track_rgbd`` (``bench.py::full_pipeline_window``'s
     configuration) over the 150 VGA frames of the loop circle
     (``loop_trajectory(150, radius=2.5)``, no boxes; rendered in a
-    process pool) and frames 0-19 again: every frame tracks, the
-    vocabulary is trained, ATE, peak memory, launch counts (K1 twice a
-    frame, K2 once), loops closed, ms/frame; host syncs counted on a
+    process pool) and frames 0-39 again: every frame tracks, the
+    vocabulary is trained, at least one loop closes (the revisit; the
+    chi2 gate accepts the correction), ATE, peak memory, launch counts
+    (K1 twice a frame, K2 once), ms/frame; host syncs counted on a
     second run outside the three waits the loop closer makes (vocabulary
     training, a verification's verdict, a correction's gate); per-stage
     loop times on a third run;
@@ -85,7 +86,17 @@ Phases (each raises, and so exits nonzero, on failure):
     apart from the initialization attempts and the one retirement wait a
     mono frame makes; the initializer and the initial map on the card
     against the CPU from the same inputs and noise;
-16. timing: each kernel's device time and its plain version's, last, so
+16. active exploration: ``examples/run_exploration.py``'s configuration
+    (320x240, 512 features, loop closing on, a 32x32 grid over
+    ``default_world(n_boxes=4)``) for its 15 steps through
+    ``active.explorer.run_exploration``: ``tests/test_active.py``'s
+    bars, peak memory, K2 once a fed frame and K1 twice a track step
+    and per relocalization attempt, the run's waits counted by kind and
+    no other host sync, each stage's time, tracking ms/frame without
+    the render, ATE against the rendered poses; one planning step of
+    the final map on the card against the CPU; the grid and the scorer
+    timed on the mapping slice's arena (512 keyframes, 65,536 slots);
+17. timing: each kernel's device time and its plain version's, last, so
     that the profiler's overhead cannot reach the runs before; K1 also at
     E=128 (the fixed cost of its 44 passes), at E=2000 and over 8
     problems of E=1024 in one launch, K2 also on one KITTI-shape image.
@@ -93,10 +104,11 @@ Phases (each raises, and so exits nonzero, on failure):
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launch counts in the tracking slice, the mapping slice, the arena-full
 run, the relocalization run, the map-reuse run, the stereo run, the
-full pipeline with loop closing, the constructed closure and the mono
-run (``launches``, ``mapping_launches``, ``full_launches``,
-``reloc_launches``, ``reuse_launches``, ``stereo_launches``,
-``loop_launches``, ``closure_launches``, ``mono_launches``), its
+full pipeline with loop closing, the constructed closure, the mono run
+and the exploration run (``launches``, ``mapping_launches``,
+``full_launches``, ``reloc_launches``, ``reuse_launches``,
+``stereo_launches``, ``loop_launches``, ``closure_launches``,
+``mono_launches``, ``explore_launches``), its
 device time (``ms``) beside its plain version's (``plain_ms``), its
 bound (``bound_ms``: the larger of its FLOP over the float32 peak and
 its bytes over the memory rate, from this run's inputs; ``bound_by``),
@@ -151,7 +163,11 @@ STEREO_ATE_BOUND_M = 0.020
 STEREO_OK_AGREE = 0.999      # stereo matching, card vs CPU
 STEREO_UR_ATOL = 1e-3        # px
 N_LOOP = 150                 # frames of bench.py's loop circle
-N_REVISIT = 20               # frames 0-19 tracked again after the circle
+N_REVISIT = 20               # closure arc B: frames 0-19 after 95-149
+# phase 13: frames 0-39 tracked again after the circle, the shortest
+# revisit of 20, 40 and 60 frames on which the port closes the loop on
+# the card (ROADMAP queue 3, item q)
+N_LOOP_REVISIT = 40
 LOOP_ATE_BOUND_M = 0.15      # tests/test_e2e_full_pipeline.py's bound
 LOOP_PEAK_BYTES = 2 ** 30
 # tests/test_loop_closing.py: arcs, the drift of arc B's world (twist),
@@ -172,6 +188,24 @@ INIT_CARD_CPU_ROT_RAD = 1e-3   # initializer, card vs CPU
 INIT_CARD_CPU_DIR = 1e-3       # translation direction (unit vectors)
 INIT_CARD_CPU_POINT_OK = 0.99
 INIT_MAP_CARD_CPU_ATOL = 1e-3  # initial map: points and pose, after gauge
+EXPLORE_STEPS = 15           # examples/run_exploration.py's default
+EXPLORE_MIN_POSITIONS = 3    # tests/test_active.py::test_exploration_loop
+EXPLORE_PEAK_BYTES = 2 ** 30
+EXPLORE_GRID_AGREE = 0.995   # card vs CPU, as tests/test_torch_active.py
+EXPLORE_SCORE_AGREE = 0.99
+EXPLORE_SCORE_ATOL = 2
+# FLOP counted from active/occupancy.py: a ray sample's x and z (4), its
+# cell (2 subtractions, 2 divisions, 2 floors), the in-grid test (4
+# compares, 3 ands), the clamps and the flat index (6), its weight and
+# its add (2); an endpoint the same without its coordinates, and the
+# ray's two differences
+GRID_FLOP_SAMPLE = 25
+GRID_FLOP_END = 23
+# FLOP per (pose, point) counted from geometry/projection.py::in_frustum:
+# se3_apply (two cross products, the quaternion terms, the translation:
+# 36), the projection (10), the viewing vector, its length and cosine
+# (16), the tests and their ands (18), the valid mask and the sum (2)
+SCORE_FLOP_PAIR = 82
 # H100 SXM peaks (NVIDIA's data sheet, at 700 W): float32 outside the
 # tensor cores, and HBM3
 PEAK_F32_FLOPS = 67e12
@@ -1383,16 +1417,17 @@ def timed_loop_waits(lc):
 
 
 def loop_inputs(frames, traj):
-    """Frames 0-149 and 0-19 again, with their ground-truth centres."""
-    order = list(range(N_LOOP)) + list(range(N_REVISIT))
+    """Frames 0-149 and 0-39 again, with their ground-truth centres."""
+    order = list(range(N_LOOP)) + list(range(N_LOOP_REVISIT))
     return [frames[i] for i in order], np.stack(
         [traj[i][:3, 3].astype(np.float64) for i in order])
 
 
 def phase_loop_pipeline(device, frames, traj):
     """``System(cfg_map, use_loop_closing=True).track_rgbd`` over the
-    loop circle and its first 20 frames again: timed run with launch
-    counts, ATE and peak memory; a second run counting host syncs outside
+    loop circle and its first 40 frames again: timed run with launch
+    counts, ATE, peak memory and at least one loop closed (the closure
+    accepted by the chi2 gate); a second run counting host syncs outside
     the loop closer's waits; a third with per-stage times."""
     import torch
     from active_orb_slam2_tpu_torch.models.system import System
@@ -1450,6 +1485,10 @@ def phase_loop_pipeline(device, frames, traj):
     check_all_ok(slam, "loop pipeline", n_tracked=len(inputs) - 1)
     if lc.vocab is None:
         raise RuntimeError("loop pipeline: no vocabulary was trained")
+    gated = [bool(out[1]) for n, _, _, out in waits.calls if n == "correct"]
+    if slam.n_loops_closed < 1 or not any(gated):
+        raise RuntimeError(f"loop pipeline: no loop closed (corrections "
+                           f"accepted by the gate: {gated})")
     if launches != {"pose_opt": 2 * (len(inputs) - 1) + 2 * len(attempts),
                     "keypoints": len(inputs)}:
         raise RuntimeError(f"loop pipeline: launches {launches}")
@@ -1875,6 +1914,329 @@ def phase_mono(device, frames, gt):
     return launches
 
 
+class explore_probes:
+    """Inside the ``with``, the exploration run is instrumented without
+    changing what it computes: the renderer records each fed pose and
+    its host time; ``slam.track_rgbd`` its host time and the track steps
+    it runs; the waits the run may make (the first ``WARMUP`` frames, as
+    every phase's sync count leaves them out: the first initializes the
+    map, and the first frames make the per-device constants of the
+    320x240 pyramid; each state read's flush, each step's one copy
+    ``explorer.read_step``, each LOST frame with its relocalization
+    attempt, the loop closer's vocabulary training, verifications and
+    corrections) run with the sync debug mode off, timed and counted by
+    kind; ``astar_plan`` and ``goals_from_mask`` are timed."""
+
+    KINDS = ("warm_up", "state_read", "step_copy", "lost_frame",
+             "vocabulary", "verification", "correction")
+
+    def __init__(self, slam, explorer):
+        self.slam, self.explorer = slam, explorer
+        self.poses, self.render_s, self.track_s = [], 0.0, 0.0
+        self.track_steps, self.read_s, self._in_track = 0, 0.0, False
+        self.waits = {k: 0 for k in self.KINDS}
+        self.wait_s = {k: 0.0 for k in self.KINDS}
+        self.plan_s = {"goals": 0.0, "astar": 0.0}
+
+    def _quiet(self, kind, fn, when=None):
+        import torch
+
+        def call(*args, **kw):
+            if when is not None and not when():
+                return fn(*args, **kw)
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                dt = time.perf_counter() - t0
+                self.wait_s[kind] += dt
+                self.waits[kind] += 1
+                if kind == "state_read" and not self._in_track:
+                    self.read_s += dt
+                torch.cuda.set_sync_debug_mode(mode)
+        return call
+
+    def _timed(self, key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.plan_s[key] += time.perf_counter() - t0
+        return call
+
+    def __enter__(self):
+        from active_orb_slam2_tpu_torch.models.system import LOST
+        slam, ex, lc = self.slam, self.explorer, self.slam.loop_closer
+        self._saved = {n: getattr(ex, n) for n in
+                       ("render_rgbd", "read_step", "astar_plan",
+                        "goals_from_mask")}
+        render, track, step = ex.render_rgbd, slam.track_rgbd, \
+            slam.track_step
+
+        def recorded_render(world, cam, Twc, *a, **kw):
+            self.poses.append(np.array(Twc, np.float64))
+            t0 = time.perf_counter()
+            out = render(world, cam, Twc, *a, **kw)
+            self.render_s += time.perf_counter() - t0
+            return out
+
+        def timed_track(*args):
+            t0 = time.perf_counter()
+            self._in_track = True
+            try:
+                return track(*args)
+            finally:
+                self._in_track = False
+                self.track_s += time.perf_counter() - t0
+
+        def counted_step(*args):
+            self.track_steps += 1
+            return step(*args)
+
+        ex.render_rgbd = recorded_render
+        ex.read_step = self._quiet("step_copy", ex.read_step)
+        ex.astar_plan = self._timed("astar", ex.astar_plan)
+        ex.goals_from_mask = self._timed("goals", ex.goals_from_mask)
+        slam.track_rgbd = self._quiet(
+            "warm_up", timed_track, when=lambda: len(self.poses) <= WARMUP)
+        slam.track_step = counted_step
+        slam.flush = self._quiet("state_read", slam.flush)
+        slam._dispatch_track = self._quiet(
+            "lost_frame", slam._dispatch_track,
+            when=lambda: slam._state == LOST)
+        lc.ensure_vocabulary = self._quiet("vocabulary", lc.ensure_vocabulary)
+        lc.compute_sim3 = self._quiet("verification", lc.compute_sim3)
+        lc.correct = self._quiet("correction", lc.correct)
+        self._track_step = step
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self.explorer, n, fn)
+        for n in ("track_rgbd", "flush", "_dispatch_track"):
+            delattr(self.slam, n)
+        self.slam.track_step = self._track_step
+        for n in ("ensure_vocabulary", "compute_sim3", "correct"):
+            delattr(self.slam.loop_closer, n)
+
+
+def synced_ms(fn, reps=5):
+    """Median host time (ms) of ``fn`` synchronized at both ends, after a
+    warm-up call; and the peak device memory one call allocates above
+    what was allocated before it."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return float(np.median(times)), torch.cuda.max_memory_allocated() - base
+
+
+def explore_bounds(m, spec, n_poses, n_ray_samples=48):
+    """Bounds (ms, by) of the occupancy grid and of the scorer of
+    ``n_poses`` poses on arena ``m``, from this map's data: the observed
+    (keyframe, point) rays and the valid points (what the work needs)."""
+    K, F = m.kf_point.shape
+    pt = m.kf_point.clamp(min=0).long()
+    n_obs = int(((m.kf_point >= 0) & m.kf_valid[:, None]
+                 & m.pt_valid[pt]).sum())
+    n_pts = int(m.pt_valid.sum())
+    cells = spec.width * spec.height
+    grid = bound(n_obs * (GRID_FLOP_SAMPLE * n_ray_samples
+                          + GRID_FLOP_END),
+                 K * F * 4 + K * (28 + 1) + n_obs * (1 + 8) + cells)
+    scorer = bound(n_poses * n_pts * SCORE_FLOP_PAIR,
+                   n_poses * (28 + 4) + n_pts * (12 + 12 + 4 + 4 + 1))
+    return grid, scorer, n_obs, n_pts
+
+
+def planning_step(m, spec, cam, start_cell, min_features=30):
+    """One planning step of ``run_exploration`` on map ``m`` (its
+    device): (grid, localizability [H', W', 8], goals, path)."""
+    from active_orb_slam2_tpu_torch.active import (
+        build_occupancy_grid, build_visibility_scorer)
+    from active_orb_slam2_tpu_torch.active.explorer import (
+        plan_step, read_step)
+    _, grid, fm, loc = read_step(build_occupancy_grid(spec),
+                                 build_visibility_scorer(cam), m, spec)
+    goals, _, path = plan_step(grid, fm, loc, spec, start_cell,
+                               min_features)
+    return grid, loc, goals, path
+
+
+def phase_explore(device, arena):
+    """The active-exploration layer: ``examples/run_exploration.py``'s
+    configuration on the card for all its steps (bars, launches, waits
+    by kind, other host syncs, times, ATE), one planning step of its
+    final map on the card against the CPU, and the grid and the scorer
+    timed on ``arena`` (the mapping slice's saved map)."""
+    import torch
+    from active_orb_slam2_tpu_torch.active import (
+        build_occupancy_grid, build_visibility_scorer, explorer,
+        frontier_mask, score_grid_localizability)
+    from active_orb_slam2_tpu_torch.examples.run_exploration import (
+        N_BOXES, START_XZ, exploration_config)
+    from active_orb_slam2_tpu_torch.io.synthetic import default_world
+    from active_orb_slam2_tpu_torch.io.trajectory import camera_centers
+    from active_orb_slam2_tpu_torch.models import convert
+    from active_orb_slam2_tpu_torch.models.map_state import MapState
+    from active_orb_slam2_tpu_torch.models.system import OK, System
+    from active_orb_slam2_tpu_torch.utils.evaluate import umeyama_alignment
+    cfg, spec = exploration_config()
+    t0 = time.perf_counter()
+    slam = System(cfg, use_loop_closing=True, device=device)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    n_sync, where = 0, []
+    with recorded_relocalizers() as rec, \
+            explore_probes(slam, explorer) as probe, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            xlog = explorer.run_exploration(
+                slam, default_world(n_boxes=N_BOXES), spec,
+                n_steps=EXPLORE_STEPS, start_xz=START_XZ)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        slam.flush()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    for w in caught:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            n_sync += 1
+            if len(where) < 8:
+                where.append(f"{w.filename}:{w.lineno}")
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    attempts = rec.calls
+    fed = len(probe.poses)
+    tracked = len(slam.metrics)
+    states = [r["state"] for r in slam.metrics]
+    ok_frames = [0] + [r["frame"] for r in slam.metrics if r["state"] == OK]
+    _, poses = slam.frame_trajectory()
+    gt = np.stack([T[:3, 3] for T in probe.poses])
+    if poses.shape != (fed, 7) or not np.isfinite(poses).all():
+        raise RuntimeError(f"explore: trajectory malformed: {poses.shape}")
+    ate = umeyama_alignment(camera_centers(poses[ok_frames]), gt[ok_frames],
+                            fix_scale=True)[4]
+    steps = len(xlog.positions)
+    lc = slam.loop_closer
+    track_ms = (probe.track_s + probe.read_s) / fed * 1e3
+    log(f"explore: {steps} steps, {xlog.replans} replans, {fed} frames fed, "
+        f"{probe.track_steps} track steps, {tracked} retired "
+        f"({states.count(OK)} OK), keyframes {slam.kf_seq}"
+        f" (live {slam.n_live_kf}), loops closed {slam.n_loops_closed} "
+        f"(candidates {lc.n_candidates}, vocabulary trainings "
+        f"{lc._vocab_stage}), relocalization attempts "
+        f"{len(attempts)} ({[(a['ok'], a['n_inliers']) for a in attempts]})"
+        f"; the System took {build_ms:.1f} ms to build")
+    log(f"explore: coverage {[round(c, 4) for c in xlog.coverage]}, points "
+        f"{xlog.n_points}, positions {[(round(x, 3), round(z, 3)) for x, z in xlog.positions]}")
+    log(f"explore: run {wall_s:.2f} s, of which render {probe.render_s:.2f} s"
+        f" (host numpy), tracking {track_ms:.3f} ms/frame (track_rgbd and "
+        f"the state read after it, render kept out), step copy "
+        f"{probe.wait_s['step_copy'] / max(steps, 1) * 1e3:.3f} ms/step "
+        f"(grid, frontier mask and scorer enqueued and read in one copy), "
+        f"goals {probe.plan_s['goals'] / max(steps, 1) * 1e3:.3f} ms/step, "
+        f"A* {probe.plan_s['astar'] / max(xlog.replans, 1) * 1e3:.3f} "
+        f"ms/step; ATE {ate:.5f} m (rigid, {len(ok_frames)} tracked "
+        f"frames); peak device memory {peak / 2**20:.1f} MiB; launches "
+        f"{launches}")
+    log(f"explore: waits (allowed; calls by kind) {probe.waits}, their "
+        f"host seconds {({k: round(v, 3) for k, v in probe.wait_s.items()})}"
+        f"; sync warnings elsewhere {n_sync} {where}")
+    if steps < EXPLORE_MIN_POSITIONS or xlog.replans < 1:
+        raise RuntimeError(f"explore: {steps} positions, {xlog.replans} "
+                           f"replans")
+    if not (xlog.coverage[-1] > xlog.coverage[0]
+            and xlog.n_points[-1] >= xlog.n_points[0]):
+        raise RuntimeError("explore: coverage or points did not grow")
+    if peak > EXPLORE_PEAK_BYTES:
+        raise RuntimeError(f"explore: peak memory {peak / 2**20:.1f} MiB "
+                           f"above 1 GiB")
+    if launches != {"pose_opt": 2 * (probe.track_steps + len(attempts)),
+                    "keypoints": fed}:
+        raise RuntimeError(f"explore: launches {launches}, expected K1 "
+                           f"2 x ({probe.track_steps} + {len(attempts)}), "
+                           f"K2 {fed}")
+    if n_sync:
+        raise RuntimeError(f"explore: {n_sync} synchronizing calls outside "
+                           f"the allowed waits: {where}")
+    if probe.waits["step_copy"] != steps:
+        raise RuntimeError(f"explore: {probe.waits['step_copy']} step "
+                           f"copies for {steps} steps")
+
+    # each step's device stages on the final map, synchronized
+    occupancy = build_occupancy_grid(spec)
+    scorer = build_visibility_scorer(cfg.camera)
+    m = slam.map
+    grid = occupancy(m)
+    stage_ms = {
+        "grid": synced_ms(lambda: occupancy(m))[0],
+        "scorer": synced_ms(lambda: score_grid_localizability(
+            scorer, m, spec, headings=8, cell_stride=2))[0],
+        "frontier_mask": synced_ms(lambda: frontier_mask(grid))[0],
+        "step_copy": synced_ms(lambda: explorer.read_step(
+            occupancy, scorer, m, spec))[0]}
+    log(f"explore: on the final map, ms per call (median of 5, "
+        f"synchronized): {stage_ms}")
+
+    # one planning step of the final map, card against CPU
+    x, z = xlog.positions[-1]
+    start = (int((z - spec.origin_z) / spec.resolution),
+             int((x - spec.origin_x) / spec.resolution))
+    card = planning_step(m, spec, cfg.camera, start)
+    cpu = planning_step(MapState(*[t.cpu() for t in m]), spec, cfg.camera,
+                        start)
+    grid_agree = float((card[0] == cpu[0]).mean())
+    diff = np.abs(card[1].astype(np.int64) - cpu[1])
+    score_agree = float((diff == 0).mean())
+    log(f"explore card vs CPU: grid cells equal {grid_agree:.5f}, scores "
+        f"equal {score_agree:.5f} of {diff.size} (max diff "
+        f"{int(diff.max())}), goals {len(card[2])}/{len(cpu[2])} equal "
+        f"{card[2] == cpu[2]}, path {card[3]} / equal {card[3] == cpu[3]}")
+    if grid_agree < EXPLORE_GRID_AGREE or score_agree < EXPLORE_SCORE_AGREE \
+            or diff.max() > EXPLORE_SCORE_ATOL:
+        raise RuntimeError("explore: grid or scores, card and CPU disagree")
+    if card[2] != cpu[2] or card[3] != cpu[3]:
+        raise RuntimeError("explore: goals or path, card and CPU disagree")
+    del slam, m
+
+    # the grid and the scorer on the mapping slice's arena
+    big = convert.map_from_jax_numpy(arena, device)
+    grid_b, scorer_b, n_obs, n_pts = explore_bounds(
+        big, spec, spec.width * spec.height * 2)
+    big_ms = {"grid": synced_ms(lambda: occupancy(big)),
+              "scorer": synced_ms(lambda: score_grid_localizability(
+                  scorer, big, spec, headings=8, cell_stride=2))}
+    for name, b in (("grid", grid_b), ("scorer", scorer_b)):
+        ms, mem = big_ms[name]
+        log(f"explore full arena ({big.kf_point.shape[0]} keyframes x "
+            f"{big.kf_point.shape[1]} features, {big.pt_xyz.shape[0]} point "
+            f"slots; {n_obs} observed rays, {n_pts} valid points): {name} "
+            f"{ms:.3f} ms (median of 5, synchronized), peak {mem / 2**20:.1f}"
+            f" MiB above the arena, bound {b[0]:.6f} ms by {b[1]}")
+        if mem > EXPLORE_PEAK_BYTES:
+            raise RuntimeError(f"explore: full-arena {name} peak "
+                               f"{mem / 2**20:.1f} MiB above 1 GiB")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1925,6 +2287,7 @@ def main():
     map_slam, runs["mapping_launches"] = phase_mapping_slice(device, frames,
                                                              gt)
     phase_mapping_step(map_slam)
+    arena = map_slam.checkpoint()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "map.npz")
         map_slam.save_map(path)
@@ -1946,6 +2309,8 @@ def main():
                                                 loop_traj)
     runs["closure_launches"] = phase_closure(device, loop_frames, loop_traj)
     runs["mono_launches"] = phase_mono(device, mono_frames, mono_gt)
+    runs["explore_launches"] = phase_explore(device, arena)
+    del arena
     times = phase_timing(checks)
 
     kernels = [

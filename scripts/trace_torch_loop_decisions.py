@@ -7,7 +7,8 @@ mapping and loop closing on; the 150 frames of
 root of a checkout:
 
     python3 scripts/trace_torch_loop_decisions.py [--device cuda|cpu]
-        [--pipeline default|eager] [--frames-file NPZ] [--json PATH]
+        [--pipeline default|eager] [--frames-file NPZ] [--revisit N]
+        [--json PATH]
 
 Each keyframe event gives a row: the keyframe sequence number, its slot
 and frame, the live keyframes and map points after the event, and the
@@ -203,14 +204,15 @@ def _render(i):
             np.clip(d * 1e3, 0, 65535).astype(np.uint16))
 
 
-def loop_frames(workers=8):
-    """The frames of the loop circle and its revisit, rendered in a pool
-    of fresh processes (closed before it returns)."""
+def loop_frames(workers=8, revisit=N_REVISIT):
+    """The frames of the loop circle and its first ``revisit`` frames
+    again, rendered in a pool of fresh processes (closed before it
+    returns)."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(min(workers, os.cpu_count() or 1)) as pool:
         frames = pool.map(_render, range(N_LOOP))
-    return frames + frames[:N_REVISIT]
+    return frames + frames[:revisit]
 
 
 def main():
@@ -222,6 +224,9 @@ def main():
                     help="frames saved as arrays gray, depth in an .npz "
                          "(tests/test_torch_loop_circle_decisions.py "
                          "--render) instead of rendering them")
+    ap.add_argument("--revisit", type=int, default=N_REVISIT,
+                    help="frames of the circle tracked again after it "
+                         "(when the frames are rendered here)")
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     import torch
@@ -233,7 +238,7 @@ def main():
         with np.load(args.frames_file) as f:
             frames = list(zip(f["gray"], f["depth"]))
     else:
-        frames = loop_frames()
+        frames = loop_frames(revisit=args.revisit)
     t1 = time.perf_counter()
     events, verifs, detects, slam = trace_port(
         loop_config(), frames, torch.device(args.device),

@@ -285,3 +285,18 @@ def test_kitti_and_euroc_entry_points(tmp_path):
         assert "frames: 6 " in out, (name, out)
         data = np.loadtxt(work / traj, ndmin=2)
         assert data.shape[1] == cols, name
+
+
+def test_run_exploration_entry_point(tmp_path):
+    """``python -m ...examples.run_exploration --device cpu --steps 1``:
+    the example's configuration (320x240, loop closing on, the 32x32
+    grid over ``default_world(n_boxes=4)``) plans once, moves, and prints
+    the JAX example's four lines."""
+    out = run_entry("run_exploration", "--steps", "1", cwd=tmp_path)
+    lines = out.strip().splitlines()
+    assert len(lines) == 4, out
+    assert lines[0] == "steps: 1  replans: 1", out
+    assert lines[1].startswith("coverage: ") and " -> " in lines[1]
+    points = [int(v) for v in lines[2].split(":")[1].split("->")]
+    assert len(points) == 2 and points[0] > 0, out
+    assert lines[3].startswith("keyframes: ") and "loops: 0" in lines[3]

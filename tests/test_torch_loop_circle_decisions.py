@@ -161,6 +161,15 @@ def detections_replay(side):
             for r in side["detections"]]
 
 
+def detection_margins(side):
+    """Each loop detection that named a consistent candidate: (keyframe
+    sequence, current keyframe, candidate, the candidate's BoW score
+    less the minimum score)."""
+    return [(r["kf_seq"], r["cur"], r["cand"],
+             r["scores"][str(r["cand"])] - r["min_score"])
+            for r in side["detections"] if r["cand"] >= 0]
+
+
 def verdicts(side):
     return [(v["kf_seq"], v["cur"], v["loop"], v["verdict"])
             for v in side["verifications"]]
@@ -242,12 +251,15 @@ def test_vga_decisions_named_cause():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--render", help="render the frames into this .npz")
+    ap.add_argument("--revisit", type=int, default=20,
+                    help="with --render: frames of the circle rendered "
+                         "again after it")
     ap.add_argument("--frames", help="frames saved by --render")
     ap.add_argument("--side", choices=("jax", "port-witness"))
     ap.add_argument("--json")
     args = ap.parse_args()
     if args.render:
-        frames = loop_frames()
+        frames = loop_frames(revisit=args.revisit)
         np.savez(args.render, gray=np.stack([g for g, _ in frames]),
                  depth=np.stack([d for _, d in frames]))
         return 0
@@ -267,3 +279,28 @@ def main():
 
 if __name__ == "__main__":
     sys.exit(main())
+
+
+N_LONG_REVISIT = 40
+
+
+@pytest.mark.slow
+def test_vga_long_revisit_closes_in_jax():
+    """ROADMAP queue 3, item q: the loop circle at full width and frames
+    0-39 again (``chip_smoke.py`` phase 13's revisit).  The port on the
+    card closes the revisit there (verifying the keyframe of frame 169
+    against keyframe 5 at the event of frame 177, a score margin of
+    0.225 over the minimum); the JAX package, each frame retired before
+    the next, closes at least one loop on the same frames.  Prints its
+    verdicts, its closing events and the margin of every consistent
+    candidate over the minimum score.  Tens of minutes: run it on an
+    8-core CPU beside the card, not in the tier-1 run."""
+    frames = loop_frames(revisit=N_LONG_REVISIT)
+    jax_side = summary(*trace_jax(frames))
+    print(json.dumps({
+        "verdicts": verdicts(jax_side),
+        "closed": [(e["kf_seq"], e["frame"]) for e in jax_side["events"]
+                   if e["closed"]],
+        "margins": detection_margins(jax_side),
+        "loops_closed": jax_side["loops_closed"]}))
+    assert jax_side["loops_closed"] >= 1

@@ -90,7 +90,10 @@ def test_port_imports_no_jax():
         "       'io.native', 'utils.evaluate', 'examples.run_mono_tum',\n"
         "       'examples.run_tum_rgbd', 'examples.run_kitti_mono',\n"
         "       'examples.run_kitti_stereo', 'examples.run_euroc_mono',\n"
-        "       'examples.run_euroc_stereo', 'examples.run_synthetic')\n"
+        "       'examples.run_euroc_stereo', 'examples.run_synthetic',\n"
+        "       'active', 'active.occupancy', 'active.scoring',\n"
+        "       'active.frontier', 'active.planner', 'active.explorer',\n"
+        "       'examples.run_exploration')\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "print('clean', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
