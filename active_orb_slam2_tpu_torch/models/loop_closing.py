@@ -34,9 +34,14 @@ still holds the loop keyframe (the JAX package checks slot liveness,
 ``loop_closing.py:790``, and not at all, ``:692``/``:723``); the fuse
 writes only active lanes, where the JAX package's masked lanes write
 feature 0 of each target back to its old value (item g); a rejected
-correction is kept in ``last_rejection`` rather than written to a file.
+correction is kept in ``last_rejection`` rather than written to a file;
+trained vocabularies are cached under a digest of the whole corpus,
+where the JAX package's key (its size and first 16 descriptors) hands
+one map's vocabulary to another map of the process whose first
+keyframe and corpus size are the same.
 """
 
+import hashlib
 import sys
 import time
 from typing import Optional
@@ -569,7 +574,8 @@ _vocab_cache = {}
 
 
 def train_vocab_cached(descs, k, depth):
-    key = (descs.shape[0], k, depth, int(descs[:16].astype(np.uint64).sum()))
+    key = (descs.shape, k, depth,
+           hashlib.sha1(np.ascontiguousarray(descs).tobytes()).digest())
     if key not in _vocab_cache:
         _vocab_cache[key] = train_vocabulary(descs, k=k, depth=depth)
     return _vocab_cache[key]

@@ -1,23 +1,32 @@
 """Global bundle adjustment: point-major layout, Schur PCG or dense
-Schur solve, on one device.
+Schur solve, on one device or sharded over a process mesh.
 
-Port of the single-device half of ``active_orb_slam2_tpu/parallel/
-dist_ba.py`` (the reference's ``Optimizer::GlobalBundleAdjustemnt``):
+Port of ``active_orb_slam2_tpu/parallel/dist_ba.py`` (the reference's
+``Optimizer::GlobalBundleAdjustemnt``):
 
 * every point carries its observer list (keyframe slot, observation) up
   to ``max_obs``, built from the arena's forward store with one stable
   sort (:func:`build_point_major_edges`);
 * each LM iteration linearizes all edges, reduces the camera system
   ``S = Hcc - A Hpp^-1 A^T`` and solves it matrix-free by block-Jacobi
-  preconditioned CG, or (``dense=True``) assembles it [6K, 6K] and
-  solves it by Cholesky; points are back-substituted.
+  preconditioned CG, or (``dense=True``, one device only) assembles it
+  [6K, 6K] and solves it by Cholesky; points are back-substituted.
 
-The sharded build over a device mesh (``build_distributed_ba``) waits
-for ROADMAP item 19.  Differences: ``.at[].add`` is ``index_add_``; the
-dense assembly takes the points in chunks that cover all of them (the
-JAX package's equal split drops the last ``P % n_chunks``, ROADMAP
-queue 3 item e); ``inv`` / ``cholesky`` are the ``_ex`` forms, which do
-not wait on the card.
+:func:`build_distributed_ba` splits the point axis (and the observer
+lists) into one contiguous block per rank of a ``DeviceMesh``
+(``parallel/mesh.py``) and keeps the cameras replicated.  The LM loop,
+:func:`global_ba`, takes one ``reduce`` (a sum over the shards, None on
+one device) and calls it where the JAX package psums: the inlier count
+before the loop, Hcc, g, D and chi2 of each iteration packed into one
+buffer, ``y_ap`` in every CG mat-vec and the trial chi2.  Nothing
+reduced scales with the point count, and every decision stays a
+tensor, so every rank makes the same collectives in the same order.
+
+Differences: ``.at[].add`` is ``index_add_``; the dense assembly takes
+the points in chunks that cover all of them (the JAX package's equal
+split drops the last ``P % n_chunks``, ROADMAP queue 3 item e);
+``inv`` / ``cholesky`` are the ``_ex`` forms, which do not wait on the
+card.
 """
 
 from typing import NamedTuple
@@ -30,6 +39,7 @@ from active_orb_slam2_tpu_torch.geometry.se3 import se3_retract
 from active_orb_slam2_tpu_torch.models.map_state import MapState
 from active_orb_slam2_tpu_torch.models.optimizer import (
     edge_residual_jac, huber_weight, inv_sigma2)
+from active_orb_slam2_tpu_torch.parallel.mesh import MeshShards
 
 MAX_OBS = 16
 DENSE_CHUNK = 4096      # points per block of the dense Schur assembly
@@ -166,15 +176,19 @@ def _linearize(cam: CameraParams, poses, points, e: PointEdges, inlier, lam):
     return Hcc, g, D, Hpp_inv, bp, A, chi2
 
 
-def _schur_matvec(x, Hcc_damped, A, Hpp_inv, e: PointEdges, free):
+def _schur_matvec(x, Hcc_damped, A, Hpp_inv, e: PointEdges, free,
+                  reduce=None):
     """y = S x with S = Hcc_d - A Hpp^-1 A^T, matrix-free; fixed cameras
-    pass x through."""
+    pass x through.  ``reduce`` sums the [K, 6] point-side product over
+    the shards."""
     xm = x * free[:, None]
     cam = e.cam.long()
     t = (A.transpose(-1, -2) @ xm[cam][..., None]).sum(1)      # [P, 3, 1]
     back = (A @ (Hpp_inv @ t)[:, None])[..., 0]                # [P, O, 6]
     y_ap = torch.zeros_like(x).index_add_(0, cam.reshape(-1),
                                           back.reshape(-1, 6))
+    if reduce is not None:
+        y_ap = reduce(y_ap)
     y = (Hcc_damped @ xm[..., None])[..., 0] - y_ap
     return torch.where(free[:, None], y, x)
 
@@ -241,13 +255,23 @@ def _precond_inv(Hcc_damped, D, free):
     return torch.linalg.inv_ex(M)[0]
 
 
+def _reduce_packed(reduce, *parts):
+    """Sums of several tensors over the shards in one collective: packed
+    into one flat buffer, reduced, viewed back."""
+    buf = reduce(torch.cat([p.reshape(-1) for p in parts]))
+    return [b.view(p.shape)
+            for p, b in zip(parts, buf.split([p.numel() for p in parts]))]
+
+
 def _lm_iteration(cam, poses, points, e, inlier, fixed, lam, cg_iters: int,
-                  dense: bool = False):
+                  dense: bool = False, reduce=None):
     """One damped GN step; returns (new poses, point steps, chi2 at the
     current estimate)."""
     free = ~fixed
     Hcc, g, D, Hpp_inv, bp, A, chi2 = _linearize(cam, poses, points, e,
                                                  inlier, lam)
+    if reduce is not None:
+        Hcc, g, D, chi2 = _reduce_packed(reduce, Hcc, g, D, chi2)
     eye6 = torch.eye(6, device=poses.device)
     Hcc_d = Hcc + lam * Hcc * eye6 + 1e-8 * eye6
     g = g * free[:, None]
@@ -256,40 +280,84 @@ def _lm_iteration(cam, poses, points, e, inlier, fixed, lam, cg_iters: int,
             _assemble_schur_dense(Hcc_d, A, Hpp_inv, e, free))
         dc = torch.cholesky_solve(g.reshape(-1, 1), L).view(-1, 6)
     else:
-        dc = _pcg(lambda x: _schur_matvec(x, Hcc_d, A, Hpp_inv, e, free),
+        dc = _pcg(lambda x: _schur_matvec(x, Hcc_d, A, Hpp_inv, e, free,
+                                          reduce),
                   _precond_inv(Hcc_d, D, free), g, cg_iters)
     dc = dc * free[:, None]
     return (se3_retract(poses, dc), _back_substitute(Hpp_inv, bp, A, e, dc),
             chi2)
 
 
-def _chi2_only(cam, poses, points, e, inlier):
-    return _edges_at(cam, poses, points, e, inlier)[4]
+def _chi2_only(cam, poses, points, e, inlier, reduce=None):
+    chi2 = _edges_at(cam, poses, points, e, inlier)[4]
+    return chi2 if reduce is None else reduce(chi2)
 
 
 def global_ba(cam: CameraParams, poses, kf_valid, points, pt_valid,
               e: PointEdges, fixed_mask, iters: int = 10, lam0: float = 1e-4,
-              cg_iters: int = 48, dense: bool = False):
+              cg_iters: int = 48, dense: bool = False, reduce=None):
     """Point-major global BA: ``iters`` LM iterations with chi2-monotone
     acceptance.  Invalid keyframes, ``fixed_mask`` and cameras with fewer
     than 12 inlier edges (a near-singular 6x6 block) stay fixed.
+    ``reduce`` sums a tensor over the shards when the points are this
+    rank's block (:func:`build_distributed_ba`); None on one device.
     Returns (poses [K, 7], points [P, 3], chi2)."""
+    if dense and reduce is not None:
+        raise ValueError("the dense Schur solve runs on one device only")
     K = poses.shape[0]
     dev = poses.device
     inlier = e.valid & pt_valid[:, None]
     cnt = torch.zeros(K, dtype=torch.int32, device=dev).index_add_(
         0, e.cam.reshape(-1).long(), inlier.reshape(-1).to(torch.int32))
+    if reduce is not None:
+        cnt = reduce(cnt)
     fixed = fixed_mask | ~kf_valid | (cnt < 12)
     lam = torch.full((), lam0, device=dev)
     chi2 = torch.zeros((), device=dev)
     for _ in range(iters):
         new_poses, dp, chi2_old = _lm_iteration(cam, poses, points, e, inlier,
-                                                fixed, lam, cg_iters, dense)
+                                                fixed, lam, cg_iters, dense,
+                                                reduce)
         new_points = points + dp * pt_valid[:, None]
-        chi2_new = _chi2_only(cam, new_poses, new_points, e, inlier)
+        chi2_new = _chi2_only(cam, new_poses, new_points, e, inlier, reduce)
         accept = chi2_new <= chi2_old
         poses = torch.where(accept, new_poses, poses)
         points = torch.where(accept, new_points, points)
         lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e2)
         chi2 = torch.where(accept, chi2_new, chi2_old)
     return poses, points, chi2
+
+
+def build_distributed_ba(mesh, cam: CameraParams, iters: int = 10,
+                         max_obs: int = MAX_OBS, axis="shard",
+                         cg_iters: int = 48):
+    """The global BA sharded over ``axis`` of ``mesh`` (a ``DeviceMesh``;
+    one axis name, or ``("host", "chip")`` from
+    :func:`~active_orb_slam2_tpu_torch.parallel.mesh.make_host_chip_mesh`).
+
+    Returns ``fn(poses, kf_valid, points, pt_valid, edges, fixed_mask) ->
+    (poses, points, chi2)``, which every rank of the mesh calls with the
+    global arrays.  Each rank takes its contiguous block of the points and
+    their edges (order them by :func:`anchor_block_order` first, so that a
+    block holds a stretch of the trajectory); the cameras stay
+    replicated.  Per LM iteration the ranks make one packed reduction of
+    Hcc, g, D and chi2, one [K, 6] reduction per CG step and one of the
+    trial chi2 (over ``("host", "chip")`` each is a reduction within the
+    host, then one across hosts).  The points come back whole on every
+    rank, in shard order.  ``fn.shards`` counts the reductions and their
+    bytes.  Raises ValueError when the points do not split into equal
+    blocks.
+    """
+    del max_obs  # the edge cap is set at build_point_major_edges time
+    shards = MeshShards(mesh, axis)
+
+    def fn(poses, kf_valid, points, pt_valid, e: PointEdges, fixed_mask):
+        lo, hi = shards.block(points.shape[0])
+        poses, pts, chi2 = global_ba(
+            cam, poses, kf_valid, points[lo:hi], pt_valid[lo:hi],
+            PointEdges(*(a[lo:hi] for a in e)), fixed_mask, iters=iters,
+            cg_iters=cg_iters, reduce=shards.reduce)
+        return poses, shards.gather(pts), chi2
+
+    fn.shards = shards
+    return fn

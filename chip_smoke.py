@@ -96,7 +96,19 @@ Phases (each raises, and so exits nonzero, on failure):
     the render, ATE against the rendered poses; one planning step of
     the final map on the card against the CPU; the grid and the scorer
     timed on the mapping slice's arena (512 keyframes, 65,536 slots);
-17. timing: each kernel's device time and its plain version's, last, so
+17. the sharded global BA at KITTI-00 scale (``bench.py::ba_roofline``:
+    512 keyframes, 65,536 points, 8 observations each, from
+    ``scripts/bench_torch_ba_scaling.py::build_problem``, anchor-block
+    ordered; 3 LM iterations of 48 CG steps): (a) ``global_ba`` by PCG
+    and by the dense solve, ms per LM iteration and peak memory, each
+    more than halving the pose error; (b) ``build_distributed_ba`` over
+    an in-process NCCL world of one rank, bit for bit (a)'s PCG (both in
+    deterministic mode), timed; (c) two spawned gloo ranks sharing the
+    card (NCCL refuses two ranks on one device) against (a): poses,
+    points, chi2, ms per LM iteration, collectives and bytes reduced per
+    LM iteration; (d) the sharded matcher on those ranks (M = 65,536, N =
+    4,096) against ``match_mutual`` on the card; neither kernel runs;
+18. timing: each kernel's device time and its plain version's, last, so
     that the profiler's overhead cannot reach the runs before; K1 also at
     E=128 (the fixed cost of its 44 passes), at E=2000 and over 8
     problems of E=1024 in one launch, K2 also on one KITTI-shape image.
@@ -194,6 +206,14 @@ EXPLORE_PEAK_BYTES = 2 ** 30
 EXPLORE_GRID_AGREE = 0.995   # card vs CPU, as tests/test_torch_active.py
 EXPLORE_SCORE_AGREE = 0.99
 EXPLORE_SCORE_ATOL = 2
+# phase 17, the sharded global BA: bench.py::ba_roofline's KITTI-00 scale
+# (:258-262), 3 LM iterations of 48 CG steps; two ranks share the card
+SHARDED = dict(K=512, P=65_536, O=8, iters=3, cg=48, ranks=2,
+               M=65_536, N=4_096)    # matcher: the default arena's points
+SHARDED_POSE_ATOL = 5e-4
+SHARDED_POINT_ATOL_M = 5e-3
+SHARDED_CHI2_RTOL = 1e-4
+SHARDED_ERR_SHRINK = 0.5     # pose error after / before, at most
 # FLOP counted from active/occupancy.py: a ray sample's x and z (4), its
 # cell (2 subtractions, 2 divisions, 2 floors), the in-grid test (4
 # compares, 3 ands), the clamps and the flat index (6), its weight and
@@ -2237,6 +2257,206 @@ def phase_explore(device, arena):
     return launches
 
 
+def sharded_match_inputs(M, N, device, seed=5):
+    """Random descriptors [M, 8] and [N, 8] (int32 bits) with validity;
+    half the targets copy a query with 0-15% of its bits flipped."""
+    import torch
+    rng = np.random.default_rng(seed)
+    dq = rng.integers(0, 2**32, (M, 8), dtype=np.uint32)
+    dt = rng.integers(0, 2**32, (N, 8), dtype=np.uint32)
+    flip = rng.random((N // 2, 256)) < rng.uniform(0, 0.15, (N // 2, 1))
+    dt[:N // 2] = dq[rng.choice(M, N // 2, replace=False)] ^ np.packbits(
+        flip, axis=1, bitorder="little").view(np.uint32)
+    vq, vt = rng.random(M) > 0.01, rng.random(N) > 0.01
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        dq.view(np.int32), vq, dt.view(np.int32), vt))
+
+
+def sharded_bytes(size):
+    """Bytes one rank reduces in a sharded global BA call (float32 and
+    int32): the inlier count [K], then per LM iteration Hcc, g, D and chi2
+    packed [78 K + 1], a [K, 6] vector per CG step and the trial chi2."""
+    K = size["K"]
+    return 4 * K + size["iters"] * 4 * (78 * K + 1 + size["cg"] * 6 * K + 1)
+
+
+def sharded_problem(size, device):
+    from scripts.bench_torch_ba_scaling import anchor_ordered, build_problem
+    return anchor_ordered(build_problem(size["K"], size["P"], size["O"],
+                                        device=device))
+
+
+def _sharded_rank(rank, device_type, size):
+    """One of the ranks of phase 17 (spawned; gloo): the sharded global BA
+    and the sharded matcher on this problem, each called once to warm up
+    and once timed.  Returns numpy results and the times."""
+    import torch
+    from active_orb_slam2_tpu_torch.parallel import (
+        build_distributed_ba, build_sharded_matcher, make_mesh)
+    from scripts.bench_torch_ba_scaling import CAM
+    device = torch.device(device_type, 0)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    mesh = make_mesh()
+    prob = sharded_problem(size, device)
+    fn = build_distributed_ba(mesh, CAM, iters=size["iters"],
+                              cg_iters=size["cg"])
+    out = {"mesh": str(mesh)}
+    for what, call, args in (
+            ("ba", fn, prob),
+            ("match", build_sharded_matcher(mesh, max_dist=50.0, ratio=1.0),
+             sharded_match_inputs(size["M"], size["N"], device))):
+        call(*args)
+        call.shards.calls = call.shards.bytes = 0
+        sync()
+        t0 = time.perf_counter()
+        res = call(*args)
+        sync()
+        out[what] = [a.cpu().numpy() for a in res]
+        out[what + "_ms"] = (time.perf_counter() - t0) * 1e3
+        out[what + "_calls"] = (call.shards.calls, call.shards.bytes)
+    out["peak"] = torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else 0
+    return out
+
+
+def phase_sharded_gba(device, size=SHARDED):
+    """Phase 17: the sharded global BA at KITTI-00 scale, anchor-block
+    ordered: (a) ``global_ba`` by PCG and by the dense solve (ms per LM
+    iteration, peak memory, the error against the poses the observations
+    fit); (b) ``build_distributed_ba`` over an in-process NCCL world of one
+    rank, bit for bit (a)'s PCG with both in deterministic mode, and timed;
+    (c) two spawned gloo ranks sharing the card, held against (a); (d) the
+    sharded matcher on those ranks against ``match_mutual`` on the card."""
+    import torch
+    import torch.distributed as dist
+    from active_orb_slam2_tpu_torch.ops.matching import (
+        _best_two, hamming_matrix, match_mutual)
+    from active_orb_slam2_tpu_torch.parallel import (
+        build_distributed_ba, global_ba, make_mesh)
+    from active_orb_slam2_tpu_torch.parallel.mesh import (
+        join_group, spawn_ranks)
+    from scripts.bench_torch_ba_scaling import CAM, fitted_poses
+    it, cg = size["iters"], size["cg"]
+    reset_launches()
+    t_phase = time.perf_counter()
+    prob = sharded_problem(size, device)
+    fit = fitted_poses(prob[0])
+    err0 = float(torch.linalg.vector_norm(prob[0][1:] - fit[1:]))
+    what = (f"K={size['K']}, P={size['P']}, O={size['O']}, {it} LM "
+            f"iterations of {cg} CG steps")
+    a = {}
+    for solve in ("pcg", "dense"):
+        def call():
+            a[solve] = global_ba(CAM, *prob, iters=it, cg_iters=cg,
+                                 dense=solve == "dense")
+        ms, peak = synced_ms(call, reps=3)
+        err = float(torch.linalg.vector_norm(a[solve][0][1:] - fit[1:]))
+        log(f"sharded GBA (a) global_ba {solve} ({what}): "
+            f"{ms / it:.3f} ms per LM iteration (median of 3 calls, "
+            f"synchronized), peak {peak / 2**20:.1f} MiB above the inputs, "
+            f"chi2 {float(a[solve][2]):.1f}, pose error {err0:.4f} -> "
+            f"{err:.4f}")
+        if not all(bool(torch.isfinite(x).all()) for x in a[solve]) \
+                or err >= SHARDED_ERR_SHRINK * err0:
+            raise RuntimeError(f"sharded GBA (a): {solve} did not cut the "
+                               f"pose error by half ({err0} -> {err})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        join_group("nccl", "file://" + os.path.join(tmp, "store"), 1, 0,
+                   device.index or 0)
+        try:
+            fn = build_distributed_ba(make_mesh(), CAM, iters=it,
+                                      cg_iters=cg)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                det = global_ba(CAM, *prob, iters=it, cg_iters=cg)
+                b = fn(*prob)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            same = all(torch.equal(x, y) for x, y in zip(det, b))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*prob)
+            torch.cuda.synchronize()
+            b_ms = (time.perf_counter() - t0) * 1e3 / it
+        finally:
+            dist.destroy_process_group()
+    drift = [float((x - y).abs().max()) for x, y in zip(det, a["pcg"])]
+    log(f"sharded GBA (b) build_distributed_ba over NCCL, world 1: "
+        f"{b_ms:.3f} ms per LM iteration (one call, synchronized); "
+        f"bit-identical to global_ba (both deterministic): {same}; the "
+        f"deterministic run against (a)'s: poses {drift[0]:.3g}, points "
+        f"{drift[1]:.3g} m, chi2 {drift[2] / float(det[2]):.3g} relative")
+    if not same:
+        raise RuntimeError("sharded GBA (b): the NCCL world-1 result is not "
+                           "global_ba's bit for bit")
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_sharded_rank, size["ranks"], "gloo",
+                        args=(device.type, size), timeout=600)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for key in ("ba", "match"):
+            if not all(np.array_equal(x, y) for x, y in zip(r[key], r0[key])):
+                raise RuntimeError(f"sharded GBA: the ranks' {key} results "
+                                   f"differ")
+    poses, pts, chi2 = (torch.from_numpy(x).to(device) for x in r0["ba"])
+    ref = a["pcg"]
+    dp = float((poses - ref[0]).abs().max())
+    dx = float((pts - ref[1]).abs().max())
+    dc = abs(float(chi2) - float(ref[2])) / abs(float(ref[2]))
+    err = float(torch.linalg.vector_norm(poses[1:] - fit[1:]))
+    calls, nbytes = r0["ba_calls"]
+    log(f"sharded GBA (c) {size['ranks']} gloo ranks on one card "
+        f"({r0['mesh']}; spawned, run and joined in {spawn_s:.1f} s): "
+        + ", ".join(f"rank {i} {r['ba_ms'] / it:.3f}" for i, r in
+                    enumerate(ranks))
+        + f" ms per LM iteration (one call, synchronized); "
+        f"{(calls - 1) / it:g} collectives and "
+        f"{(nbytes - 4 * size['K']) / it:g} bytes reduced per LM iteration (after one of the inlier counts, "
+        f"{4 * size['K']} B); peak {r0['peak'] / 2**20:.1f} MiB a rank; "
+        f"against (a) pcg: poses {dp:.3g}, points {dx:.3g} m, chi2 "
+        f"{dc:.3g} relative; pose error {err0:.4f} -> {err:.4f}")
+    if dp > SHARDED_POSE_ATOL or dx > SHARDED_POINT_ATOL_M \
+            or dc > SHARDED_CHI2_RTOL or err >= SHARDED_ERR_SHRINK * err0 \
+            or calls != 1 + it * (cg + 2) or nbytes != sharded_bytes(size):
+        raise RuntimeError("sharded GBA (c): the two ranks part from "
+                           "global_ba beyond the bars")
+
+    dq, vq, dt, vt = sharded_match_inputs(size["M"], size["N"], device)
+    d = hamming_matrix(dq, dt, vq, vt)
+    ref_idx, ref_dist = match_mutual(d, max_dist=50.0, ratio=1.0)
+    jbest = _best_two(d)[2]
+    tied = ((d == d.amin(0)).sum(0) > 1)[jbest]
+    del d
+    idx, dist_ = (torch.from_numpy(x).to(device) for x in r0["match"])
+    differ = idx != ref_idx
+    bad = int((differ & ~tied).sum())
+    log(f"sharded GBA (d) sharded matcher, M={size['M']}, N={size['N']}, "
+        f"{size['ranks']} ranks: {r0['match_ms']:.3f} ms a call "
+        f"(synchronized, rank 0), {int((ref_idx >= 0).sum())} reference "
+        f"matches, {int((idx >= 0).sum())} sharded; {int(differ.sum())} "
+        f"rows differ, {bad} of them outside the {int(tied.sum())} rows "
+        f"whose best column's minimum is tied; "
+        f"distances equal: {bool(torch.equal(dist_, ref_dist))}")
+    if bad or not torch.equal(dist_, ref_dist) or r0["match_calls"][0] != 1:
+        raise RuntimeError("sharded GBA (d): the sharded matcher parts from "
+                           "match_mutual")
+    launches = kernel_launches()
+    if any(launches.values()):
+        raise RuntimeError(f"sharded GBA: the path launched a kernel "
+                           f"({launches})")
+    log(f"sharded GBA: neither kernel launched; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2311,6 +2531,7 @@ def main():
     runs["mono_launches"] = phase_mono(device, mono_frames, mono_gt)
     runs["explore_launches"] = phase_explore(device, arena)
     del arena
+    phase_sharded_gba(device)
     times = phase_timing(checks)
 
     kernels = [

@@ -93,7 +93,8 @@ def test_port_imports_no_jax():
         "       'examples.run_euroc_stereo', 'examples.run_synthetic',\n"
         "       'active', 'active.occupancy', 'active.scoring',\n"
         "       'active.frontier', 'active.planner', 'active.explorer',\n"
-        "       'examples.run_exploration')\n"
+        "       'examples.run_exploration', 'parallel.mesh',\n"
+        "       'parallel.matcher', 'utils.viz')\n"
         "assert all(p.__name__ + '.' + m in sys.modules for m in new)\n"
         "print('clean', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

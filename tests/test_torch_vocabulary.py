@@ -251,3 +251,18 @@ def test_loop_closer_loads_text_vocabulary(pair, tmp_path):
     assert lc.ensure_vocabulary(None, n_kf=1000) is lc.vocab
     np.testing.assert_array_equal(lc.vocab.centers.numpy(),
                                   tvoc.centers.numpy())
+
+
+def test_vocabulary_cache_keys_the_whole_corpus(rng):
+    """Two corpora of one size that share their first 16 descriptors (two
+    maps of a process whose first keyframe is the same) train two
+    vocabularies; the same corpus again takes the cached one."""
+    from active_orb_slam2_tpu_torch.models.loop_closing import (
+        train_vocab_cached)
+    a = descs(rng, 2048)
+    b = a.copy()
+    b[16:] = descs(rng, 2048 - 16)
+    va, vb = train_vocab_cached(a, 8, 3), train_vocab_cached(b, 8, 3)
+    assert not torch.equal(va.centers, vb.centers)
+    assert torch.equal(vb.centers, tv.train_vocabulary(b, k=8, depth=3).centers)
+    assert train_vocab_cached(a.copy(), 8, 3) is va
