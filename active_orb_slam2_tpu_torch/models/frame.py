@@ -60,7 +60,10 @@ def frame_from_features(feats: OrbFeatures, cam: CameraParams,
     yi = torch.clamp(torch.round(raw_uv[:, 1]).long(), 0, h - 1)
     d = depth_map[yi, xi]
     has_d = (d > 0) & feats.valid
-    ur = torch.where(has_d, uv[:, 0] - cam.bf / torch.clamp(d, min=1e-6),
+    # bf / d as one division (a Python scalar over a tensor would be a
+    # reciprocal times the scalar in PyTorch), as in the JAX package
+    d_pos = torch.clamp(d, min=1e-6)
+    ur = torch.where(has_d, uv[:, 0] - torch.full_like(d_pos, cam.bf) / d_pos,
                      -1.0)
     depth = torch.where(has_d, d, 0.0)
     return FrameData(uv=uv, level=feats.level, angle=feats.angle,

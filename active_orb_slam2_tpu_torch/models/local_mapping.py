@@ -534,14 +534,19 @@ def build_keyframe_culling(cfg: SlamConfig, force: bool = False):
     return cull
 
 
-def build_keyframe_mapping(cfg: SlamConfig):
+def build_keyframe_mapping(cfg: SlamConfig, triangulate: bool = True,
+                           fuse: bool = True, local_ba: bool = True,
+                           cull: bool = True):
     """The keyframe-rate mapping pipeline as one call:
 
       CreateNewMapPoints -> SearchInNeighbors -> MapPointCulling + local
       BA -> KeyFrameCulling
 
     with the covisibility matrix computed once at the start; every stage
-    reads it.
+    reads it.  ``triangulate``, ``fuse``, ``local_ba`` and ``cull`` gate
+    the stages, as in the JAX package (the endurance script's bisection
+    switches): MapPointCulling goes with local BA, and with ``cull`` off
+    the victim is -1 and the snapshots are slot 0's.
 
     Returns (m, kf_slot, kf_seq) -> (m, victim, vparent, vpose, vppose,
     W_out); ``m`` is updated in place.  ``vparent``, ``vpose`` and
@@ -550,17 +555,25 @@ def build_keyframe_mapping(cfg: SlamConfig):
     keyframe event later; ``W_out`` is the covisibility matrix of the
     updated map, which the loop closer reads.
     """
-    create_body = make_create_points_body(cfg)
-    fuse_body = make_fuse_body(cfg)
-    map_body = make_mapping_body(cfg)
-    cull_body = make_cull_body(cfg)
+    create_body = make_create_points_body(cfg) if triangulate else None
+    fuse_body = make_fuse_body(cfg) if fuse else None
+    map_body = make_mapping_body(cfg) if local_ba else None
+    cull_body = make_cull_body(cfg) if cull else None
 
     def keyframe_mapping(m: MapState, kf_slot, kf_seq):
         W = covisibility_weights(m)
-        new = create_body(m, kf_slot, kf_seq, W)
-        new = fuse_body(new, kf_slot, W)
-        new = map_body(new, kf_slot, kf_seq, W)
-        new, victim = cull_body(new, kf_slot, W)
+        new = m
+        if create_body is not None:
+            new = create_body(new, kf_slot, kf_seq, W)
+        if fuse_body is not None:
+            new = fuse_body(new, kf_slot, W)
+        if map_body is not None:
+            new = map_body(new, kf_slot, kf_seq, W)
+        if cull_body is not None:
+            new, victim = cull_body(new, kf_slot, W)
+        else:
+            victim = torch.full((), -1, dtype=torch.int32,
+                                device=m.kf_pose.device)
         vc = torch.clamp(victim, min=0).long().view(1)
         vparent = new.kf_parent[vc]
         vpose = new.kf_pose[vc][0]

@@ -21,11 +21,11 @@ loop thread, ``LoopClosing.cc``):
   bounded slices at later keyframe events.
 
 The vocabulary is trained on the host from the map's descriptors at 4
-and at 48 live keyframes.  The three places that wait on the card are
-the JAX package's: that training's descriptor read, ``compute_sim3``'s
-verdict and ``correct``'s gate.  The JAX package's jitted programs are
-plain functions on tensors here; the keyframe and candidate slots are
-Python ints.
+and (unless ``vocab_grow`` is off) again at 48 live keyframes.  The
+three places that wait on the card are the JAX package's: that
+training's descriptor read, ``compute_sim3``'s verdict and ``correct``'s
+gate.  The JAX package's jitted programs are plain functions on tensors
+here; the keyframe and candidate slots are Python ints.
 
 Differences from the JAX package (ROADMAP queue 3): a pending detection
 is resolved only if its candidate slot still holds the keyframe it held
@@ -79,16 +79,18 @@ from active_orb_slam2_tpu_torch.utils.transfer import (
 
 SIM3_SEED = 7              # the JAX package's PRNGKey(7)
 LOOP_COOLDOWN = 10         # keyframes between closures (the reference's)
+# the defaults of LoopCloser's knobs (the JAX package's)
 CONSISTENCY_TH = 3         # consecutive groups a candidate must appear in
-# (live keyframes, branching, depth) of each vocabulary training: 512
-# words early, 10,000 words (sparse scoring) once the map is larger
-VOCAB_SCHEDULE = ((4, 8, 3), (48, 10, 4))
-CORPUS_MAX = 20000         # vocabulary training descriptors at most
+VOCAB_K, VOCAB_DEPTH = 8, 3    # the first training: 512 words
 MIN_SIM3_MATCHES = 20      # RANSAC and OptimizeSim3 inliers
 MIN_TOTAL_MATCHES = 40     # guided matches
-MAX_LOOP_EDGES = 32
 GBA_ITERS = 6              # global-BA LM iterations per closure
 GBA_CG_ITERS = 24          # CG steps per deferred iteration
+# (live keyframes, branching, depth) of the retrain once the map is
+# larger: 10,000 words, scored through sparse rows
+VOCAB_RETRAIN = (48, 10, 4)
+CORPUS_MAX = 20000         # vocabulary training descriptors at most
+MAX_LOOP_EDGES = 32
 # the correction's gate: reject when chi2 after > gate * before + offset
 CHI2_GATE, CHI2_GATE_OFFSET = 3.5, 0.25
 
@@ -97,16 +99,34 @@ class LoopCloser:
     """Host orchestrator of loop closing; owns the vocabulary (trained
     from the map's descriptors unless ``vocab_path`` names a DBoW2 text
     file), the BoW cache and the consistency state.  The map arena is
-    updated in place."""
+    updated in place.  The knobs and their defaults are the JAX
+    package's; ``gba_iters`` counts a closure's global-BA iterations,
+    the prompt one included, and that one runs even at 0."""
 
-    def __init__(self, cfg: SlamConfig, recent_frames_guard: int = 30,
-                 vocab_path: Optional[str] = None):
+    def __init__(self, cfg: SlamConfig, consistency_th: int = CONSISTENCY_TH,
+                 vocab_k: int = VOCAB_K, vocab_depth: int = VOCAB_DEPTH,
+                 min_sim3_matches: int = MIN_SIM3_MATCHES,
+                 min_total_matches: int = MIN_TOTAL_MATCHES,
+                 gba_iters: int = GBA_ITERS, gba_cg_iters: int = GBA_CG_ITERS,
+                 recent_frames_guard: int = 30,
+                 vocab_path: Optional[str] = None, vocab_grow: bool = True):
         self.cfg = cfg
+        # each knob is read where it is used, so it may be changed after
+        # construction (the endurance script sets gba_iters)
+        self.consistency_th = consistency_th
+        self.min_sim3_matches = min_sim3_matches
+        self.min_total_matches = min_total_matches
+        self.gba_iters = gba_iters
+        self.gba_cg_iters = gba_cg_iters
+        # (live keyframes, branching, depth) of each training: 512 words
+        # at 4 live keyframes, 10,000 at 48 unless vocab_grow is off
+        self.vocab_schedule = ((4, vocab_k, vocab_depth),) \
+            + ((VOCAB_RETRAIN,) if vocab_grow else ())
         self.vocab = None
-        self._vocab_stage = 0          # trainings of VOCAB_SCHEDULE done
+        self._vocab_stage = 0          # trainings of vocab_schedule done
         if vocab_path is not None:     # a loaded vocabulary is not retrained
             self.vocab = load_text_vocabulary(vocab_path)
-            self._vocab_stage = len(VOCAB_SCHEDULE)
+            self._vocab_stage = len(self.vocab_schedule)
         self.fix_scale = cfg.sensor in ("stereo", "rgbd")
         self.recent_frames_guard = recent_frames_guard
         self.n_rejected = 0            # corrections rejected by the gate
@@ -143,11 +163,11 @@ class LoopCloser:
         has enough live keyframes: the descriptors of every live keyframe
         are read to the host (a wait on the card), at most 20,000 of them
         taken at a uniform stride.  A retrain drops the BoW cache."""
-        if self._vocab_stage >= len(VOCAB_SCHEDULE):
+        if self._vocab_stage >= len(self.vocab_schedule):
             return self.vocab
         if n_kf is None:
             n_kf = int(m.kf_valid.sum())
-        thresh, k, depth = VOCAB_SCHEDULE[self._vocab_stage]
+        thresh, k, depth = self.vocab_schedule[self._vocab_stage]
         if n_kf < thresh:
             return self.vocab
         desc = m.kf_desc.cpu().numpy().view(np.uint32)
@@ -265,7 +285,7 @@ class LoopCloser:
         return cand.to(torch.int32), consistent.any(), prev_accept
 
     def _ensure_buffer(self, K: int, device):
-        C1 = CONSISTENCY_TH - 1
+        C1 = max(self.consistency_th - 1, 0)
         if self._prev_accept is None or self._prev_accept.shape != (C1, K):
             self._prev_accept = torch.zeros((C1, K), dtype=torch.bool,
                                             device=device)
@@ -301,7 +321,7 @@ class LoopCloser:
         cand, ok, self._prev_accept = self._detect(m, cur_kf, W, scores,
                                                    self._prev_accept)
         self._n_groups += 1
-        if self._n_groups < CONSISTENCY_TH:
+        if self._n_groups < self.consistency_th:
             return None
         fids = self._host_fid.copy() if self._host_fid is not None else None
         return {"kf": int(cur_kf), "fid": self._slot_fid.get(int(cur_kf)),
@@ -336,9 +356,9 @@ class LoopCloser:
                                         fix_scale=fix)
         s_ref, n_total = _sim3_guided_refine(m, cur_kf, loop_kf, s_opt, cam,
                                              fix)
-        ok_all = ((res.n_inliers >= MIN_SIM3_MATCHES)
-                  & (n_opt >= MIN_SIM3_MATCHES)
-                  & (n_total >= MIN_TOTAL_MATCHES))
+        ok_all = ((res.n_inliers >= self.min_sim3_matches)
+                  & (n_opt >= self.min_sim3_matches)
+                  & (n_total >= self.min_total_matches))
         verdict = torch.stack([ok_all.to(torch.int32),
                                n_total.to(torch.int32)]).cpu().numpy()
         if not verdict[0]:
@@ -402,7 +422,7 @@ class LoopCloser:
             return m, False
         self.last_closure = diag
         write_back(m, m_new)
-        self.gba_remaining = GBA_ITERS - 1
+        self.gba_remaining = max(self.gba_iters - 1, 0)
         self._gba_fixed = (int(loop_kf), sf.get(int(loop_kf)))
         return m, True
 
@@ -421,7 +441,7 @@ class LoopCloser:
         poses, pts, _ = global_ba(
             self.cfg.camera, m.kf_pose, m.kf_valid, m.pt_xyz, m.pt_valid,
             build_point_major_edges(m), fixed, iters=iters,
-            cg_iters=GBA_CG_ITERS)
+            cg_iters=self.gba_cg_iters)
         ok = torch.isfinite(poses).all() & torch.isfinite(pts).all()
         m.kf_pose.copy_(torch.where(ok, poses, m.kf_pose))
         m.pt_xyz.copy_(torch.where(ok, pts, m.pt_xyz))

@@ -9,8 +9,9 @@ candidate axis C:
   * mutual Hamming match of the frame against each candidate's features
     that hold live points ([C, F, F] distances);
   * RANSAC: 256 hypotheses per candidate from Gumbel top-6 samples, a
-    batched [C, 256, 12, 12] eigenproblem and 3x3 SVD, every hypothesis
-    scored against every match;
+    batched [C, 256, 12, 12] eigenproblem and 3x3 SVD in float64 (the
+    JAX package solves in float32), every hypothesis scored against
+    every match;
   * the best hypothesis of each candidate refined by the fused pose
     optimization (K1, ``ops/pose_opt_kernel.py``) over the C problems in
     one call, where the JAX package calls the non-fused
@@ -27,6 +28,14 @@ where JAX returns NaN, so such hypotheses are replaced by the identity
 before the solvers and come out as NaN poses, which score no inlier.
 The solvers check their results on the host, so a relocalization
 attempt waits on the card, as the JAX package's does at ``bool(ok)``.
+
+The hypotheses are solved in float64 because the 6-point normal matrix
+is ill-conditioned: a float32 ``eigh`` puts a hypothesis up to ~1e-2
+from the truth, and how far depends on the solver's rounding.  The
+RANSAC's winner and the refinement that follows then depend on the
+device: the same call on the card (cuSOLVER) and on the CPU (LAPACK)
+could part by more than 2 inliers and 1% of the associations.  In
+float64 the two solvers' hypotheses round to the same float32 pose.
 """
 
 from typing import NamedTuple
@@ -73,8 +82,10 @@ def _finite_or_identity(a):
 
 def pnp_dlt(pw, xn):
     """6+-point DLT pose from world points [..., S, 3] and normalized
-    image coordinates [..., S, 2] -> pose [..., 7] (Tcw), NaN where the
-    system was not finite."""
+    image coordinates [..., S, 2] -> pose [..., 7] (Tcw) in the input's
+    dtype, NaN where the system was not finite.  Solved in float64."""
+    dtype = pw.dtype
+    pw, xn = pw.double(), xn.double()
     X, Y, Z = pw.unbind(-1)
     x, y = xn.unbind(-1)
     zeros = torch.zeros_like(X)
@@ -100,7 +111,7 @@ def pnp_dlt(pw, xn):
     flip = torch.sign(det3(U @ Vh))
     U = torch.cat([U[..., :2], U[..., 2:] * flip[..., None, None]], dim=-1)
     pose = torch.cat([mat_to_quat(U @ Vh), t], dim=-1)
-    return torch.where((ok & ok_m)[..., None], pose, float("nan"))
+    return torch.where((ok & ok_m)[..., None], pose, float("nan")).to(dtype)
 
 
 def pnp_ransac(noise, cam: CameraParams, pw, uv, level, valid,
@@ -142,16 +153,18 @@ def gumbel_noise(n_candidates: int, n_features: int, generator, device):
 
 
 def warm_up_solvers(n_candidates: int, device):
-    """Run the relocalizer's two batched solvers once at its shapes, on
-    identity matrices, so that their one-time setup on the card is not
-    paid by the first relocalization attempt.  On an H100 the first
-    attempt of a process took 94-110 ms without it (80-91 ms of them in
-    the DLT's solves) and 13-23 ms with it, against 8-14 ms later; a
-    warm-up on a full matrix left 19-132 ms
-    (``scripts/profile_torch_reloc.py``).  Waits on the card."""
-    n = (n_candidates, N_HYPOTHESES)
-    torch.linalg.eigh(torch.eye(12, device=device).expand(*n, 12, 12))
-    torch.linalg.svd(torch.eye(3, device=device).expand(*n, 3, 3))
+    """Run the relocalizer's DLT once at its shapes, on zeros, so that
+    the one-time setup of its two batched solvers and the loading of
+    its float64 kernels on the card are not paid by the first
+    relocalization attempt.  On an H100, with the solvers then in
+    float32, the first attempt of a process took 94-110 ms without a
+    warm-up (80-91 ms of them in the DLT's solves) and 13-23 ms with
+    one on identity matrices, against 8-14 ms later; a warm-up on a
+    full matrix left 19-132 ms (``scripts/profile_torch_reloc.py``).
+    Waits on the card."""
+    n = (n_candidates, N_HYPOTHESES, MIN_SET)
+    pnp_dlt(torch.zeros(*n, 3, device=device),
+            torch.zeros(*n, 2, device=device))
 
 
 def _scatter_max_rows(idx, src):

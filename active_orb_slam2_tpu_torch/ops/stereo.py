@@ -103,5 +103,10 @@ def compute_stereo_matches(cam: CameraParams, feats_l, feats_r, img_l, img_r,
     med = jnp_median(torch.where(ok, s1, float("nan")))
     med = torch.where(torch.isnan(med), float("inf"), med)
     ok = ok & (s1 <= 2.1 * med)
-    depth = torch.where(ok, cam.bf / torch.clamp(disparity, min=1e-6), 0.0)
+    # bf / disparity as one division, as in the JAX package: PyTorch
+    # turns a Python scalar over a tensor into a reciprocal times the
+    # scalar, two roundings
+    disparity = torch.clamp(disparity, min=1e-6)
+    depth = torch.where(ok, torch.full_like(disparity, cam.bf) / disparity,
+                        0.0)
     return torch.where(ok, ur, -1.0), depth

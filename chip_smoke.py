@@ -50,11 +50,17 @@ Phases (each raises, and so exits nonzero, on failure):
     CPU on that map, with the same frame and noise;
 12. stereo at the KITTI shape of ``bench.py::stereo_kitti_shape``
     (1226x370, 2000 features, 8 levels, baseline 0.12 m, default arena,
-    mapping on) over the first 30 of its 150 pairs (rendering time), loop
-    closing off (ROADMAP item 15); launch counts, ATE, ms/frame, peak
+    mapping on) over the first 30 of its 150 pairs (all 150 rendered in
+    a process pool), loop closing off; launch counts, ATE, ms/frame, peak
     memory, host syncs on a second run, the stereo matching of one pair
     on the card against the CPU, and K2 against its plain version on
     all 8 levels of that pair's left image;
+12b. stereo with loop closing: the same configuration with loop closing
+    on over all 150 pairs, one run: every pair OK, rigid ATE <= 0.20 m,
+    peak memory, K1 twice a tracked pair (and per relocalization
+    attempt), K2 twice a pair, host syncs outside the loop closer's
+    waits counted from pair 6 to pair 119, pairs 120-149 timed, the
+    loop closer's verifications and corrections reported;
 13. the full pipeline with loop closing: ``System(cfg_map,
     use_loop_closing=True).track_rgbd`` (``bench.py::full_pipeline_window``'s
     configuration) over the 150 VGA frames of the loop circle
@@ -74,6 +80,18 @@ Phases (each raises, and so exits nonzero, on failure):
     correction and a GBA slice are timed; then the card against the CPU
     on that arena: ``compute_sim3`` with the same noise, ``correct`` with
     the same Sim3 and one ``gba_slice``;
+14b. the long-run retrain: ``scripts/run_torch_endurance.py``'s tour
+    (320x240, 1024 features, default arena, loop closing on; its 1,000
+    unique poses rendered in its process pool) until 8 keyframe events
+    after the vocabulary's retrain at 48 live keyframes (10,000 words,
+    sparse BoW rows), one run with host syncs counted after frame 6
+    outside the loop closer's waits: the retrain happened and rebuilt
+    every live keyframe's sparse row, every later scoring took the
+    sparse path, every frame OK, K1 twice a tracked frame (and per
+    relocalization attempt), K2 once a frame, peak memory, the retrain
+    stall; then the card against the CPU on the final arena with the
+    retrained vocabulary: sparse word ids equal, weights within 1e-6, L1
+    scores within 1e-5, DetectLoop's candidates and decision equal;
 15. monocular SLAM at full width: ``System(SlamConfig(sensor="mono"),
     use_loop_closing=True).track_mono`` (VGA, 1024 features, 8 levels,
     default arena) over 60 VGA frames of ``tests/test_e2e_mono.py``'s
@@ -116,11 +134,12 @@ Phases (each raises, and so exits nonzero, on failure):
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launch counts in the tracking slice, the mapping slice, the arena-full
 run, the relocalization run, the map-reuse run, the stereo run, the
-full pipeline with loop closing, the constructed closure, the mono run
-and the exploration run (``launches``, ``mapping_launches``,
-``full_launches``, ``reloc_launches``, ``reuse_launches``,
-``stereo_launches``, ``loop_launches``, ``closure_launches``,
-``mono_launches``, ``explore_launches``), its
+stereo run with loop closing, the full pipeline with loop closing, the
+constructed closure, the retrain run, the mono run and the exploration
+run (``launches``, ``mapping_launches``, ``full_launches``,
+``reloc_launches``, ``reuse_launches``, ``stereo_launches``,
+``stereo_loop_launches``, ``loop_launches``, ``closure_launches``,
+``retrain_launches``, ``mono_launches``, ``explore_launches``), its
 device time (``ms``) beside its plain version's (``plain_ms``), its
 bound (``bound_ms``: the larger of its FLOP over the float32 peak and
 its bytes over the memory rate, from this run's inputs; ``bound_by``),
@@ -167,7 +186,13 @@ RELOC_MIN_INLIERS = 50       # the reference's acceptance
 RELOC_CARD_CPU_INLIERS = 2   # relocalizer, card vs CPU: |n_inliers| diff
 RELOC_CARD_CPU_ASSOC_AGREE = 0.99
 RELOC_CARD_CPU_POSE_ATOL = 1e-3
-N_STEREO = 30                # KITTI-shape pairs run (of bench.py's 150)
+RELOC_CARD_CPU_SEEDS = tuple(range(1, 9))
+N_STEREO = 30                # KITTI-shape pairs of phase 12 (of 150)
+N_STEREO_LOOP = 150          # bench.py::stereo_kitti_shape's whole circuit
+N_STEREO_TIMED = 30          # its last pairs, timed
+# the circuit with loop closing: twice the JAX package's 0.183 m on it
+# (BENCH_r05.json, which closes no loop there)
+STEREO_LOOP_ATE_BOUND_M = 0.20
 STEREO_BASELINE_M = 0.12
 # twice the JAX package's ATE on these 30 pairs on the CPU, 0.00990 m
 # (tests/test_torch_stereo.py::test_stereo_kitti_shape_ate_beside_jax)
@@ -206,6 +231,18 @@ EXPLORE_PEAK_BYTES = 2 ** 30
 EXPLORE_GRID_AGREE = 0.995   # card vs CPU, as tests/test_torch_active.py
 EXPLORE_SCORE_AGREE = 0.99
 EXPLORE_SCORE_ATOL = 2
+# the long-run retrain: scripts/run_torch_endurance.py's tour (320x240,
+# 1024 features, default arena, 1,000 unique poses), run until 8 keyframe
+# events after the vocabulary's 48-keyframe retrain (10,000 words), at
+# most RETRAIN_MAX_FRAMES frames (the retrain came at frame 810 on the
+# CPU and at 736 on an H100: the card's sums move keyframe decisions)
+RETRAIN_EVENTS_AFTER = 8
+RETRAIN_MAX_FRAMES = 1400
+RETRAIN_WORDS = 10_000
+RETRAIN_SCORE_ATOL = 1e-5
+# a row's tf-idf weights, normalized over its features: the card sums
+# them in another order than the CPU (measured 1.79e-7 on the scores)
+RETRAIN_WEIGHT_ATOL = 1e-6
 # phase 17, the sharded global BA: bench.py::ba_roofline's KITTI-00 scale
 # (:258-262), 3 LM iterations of 48 CG steps; two ranks share the card
 SHARDED = dict(K=512, P=65_536, O=8, iters=3, cg=48, ranks=2,
@@ -339,17 +376,25 @@ def vga_config(kind="tracking"):
                       tracking=tracking, map=arena)
 
 
-def render_frames(cam):
+def _render_orbit_frame(i):
+    """Frame i of the 42-frame VGA orbit (runs in a worker process)."""
     from active_orb_slam2_tpu_torch.io.synthetic import (
-        default_world, make_sequence, orbit_trajectory)
-    frames, gt = [], []
-    for g, d, Twc in make_sequence(
-            N_FRAMES, cam, world=default_world(),
-            trajectory=orbit_trajectory(N_FRAMES, step_deg=0.8)):
-        frames.append((np.clip(g, 0, 255).astype(np.uint8),
-                       np.clip(d * 1e3, 0, 65535).astype(np.uint16)))
-        gt.append(Twc[:3, 3].astype(np.float64))
-    return frames, np.stack(gt)
+        default_world, orbit_trajectory, render_rgbd)
+    Twc = orbit_trajectory(N_FRAMES, step_deg=0.8)[i]
+    g, d = render_rgbd(default_world(), vga_config().camera, Twc)
+    return (np.clip(g, 0, 255).astype(np.uint8),
+            np.clip(d * 1e3, 0, 65535).astype(np.uint16))
+
+
+def render_frames():
+    """``make_sequence``'s 42 noise-free frames of the 0.8-degree VGA
+    orbit, rendered in a pool of fresh processes, and the true centres."""
+    from active_orb_slam2_tpu_torch.io.synthetic import orbit_trajectory
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+        frames = pool.map(_render_orbit_frame, range(N_FRAMES))
+    return frames, np.stack([T[:3, 3].astype(np.float64) for T in
+                             orbit_trajectory(N_FRAMES, step_deg=0.8)])
 
 
 def k1_problem(rng, cam, E, device, kind="noisy"):
@@ -693,22 +738,7 @@ def count_host_syncs(slam, frames, track="track_rgbd"):
     fresh ``System`` ``slam``) after its warm-up frames, and the first
     few places that made them.  The sync debug mode slows every
     operation, so it stays out of the timed run."""
-    import torch
-    n, where = 0, []
-    for i, images in enumerate(frames):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if i >= WARMUP:
-                torch.cuda.set_sync_debug_mode("warn")
-            try:
-                getattr(slam, track)(*images, i / 30.0)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        for w in caught:
-            if "called a synchronizing CUDA operation" in str(w.message):
-                n += 1
-                if len(where) < 8:
-                    where.append(f"frame {i} {w.filename}:{w.lineno}")
+    n, where, _ = track_counting_syncs(slam, frames, track, 1 / 30.0)
     slam.flush()
     return n, where
 
@@ -1049,7 +1079,8 @@ def phase_arena_full(device, frames, gt):
 class recorded_relocalizers:
     """Inside the ``with``, a ``System`` builds relocalizers that record
     each call: its verdict, inliers, kernel launches and its time on the
-    host clock, synchronized at both ends (``self.calls``)."""
+    host clock, synchronized at both ends (``self.calls``).  A call (a
+    wait the port allows) runs with the sync debug mode off."""
 
     def __enter__(self):
         import torch
@@ -1060,13 +1091,18 @@ class recorded_relocalizers:
             relocalize = self._plain(cfg, n_candidates=n_candidates)
 
             def recorded(*args):
-                before = kernel_launches()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = relocalize(*args)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-                after = kernel_launches()
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode(0)
+                try:
+                    before = kernel_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = relocalize(*args)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    after = kernel_launches()
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
                 self.calls.append({
                     "ok": bool(res.ok), "n_inliers": int(res.n_inliers),
                     "ms": ms, **{k: after[k] - before[k] for k in after}})
@@ -1202,8 +1238,9 @@ def phase_map_reuse(device, path, frames, gt):
 
 
 def phase_reloc_card_vs_cpu(slam, frames):
-    """One relocalizer call on the map-reuse arena, on the card and on the
-    CPU, with frame 0 and the same noise."""
+    """The relocalizer on the map-reuse arena, on the card and on the
+    CPU, with frame 0 and the same noise, for each of the noise seeds
+    ``RELOC_CARD_CPU_SEEDS``."""
     import torch
     from active_orb_slam2_tpu_torch.models.frame import FrameData
     from active_orb_slam2_tpu_torch.models.map_state import MapState
@@ -1212,25 +1249,31 @@ def phase_reloc_card_vs_cpu(slam, frames):
     relocalize = build_relocalizer(slam.cfg, n_candidates=8)
     frame, _ = slam.make_rgbd(*slam._upload(*frames[0]))
     cands, = slam._upload(slam._reloc_candidates())
-    gen = torch.Generator(device=slam.device)
-    gen.manual_seed(1)
-    noise = gumbel_noise(8, slam.cfg.orb.n_features, gen, slam.device)
-    card = relocalize(slam.map, frame, cands, noise)
-    cpu = relocalize(MapState(*[t.cpu() for t in slam.map]),
-                     FrameData(*[t.cpu() for t in frame]), cands.cpu(),
-                     noise.cpu())
-    card = type(card)(*[t.cpu() for t in card])
-    pose_err = float((card.pose - cpu.pose).abs().max())
-    assoc_agree = float((card.assoc == cpu.assoc).float().mean())
-    log(f"relocalizer card vs CPU: ok {bool(card.ok)}/{bool(cpu.ok)}, "
-        f"inliers {int(card.n_inliers)}/{int(cpu.n_inliers)}, assoc "
-        f"agreement {assoc_agree:.4f}, pose err {pose_err:.3e}")
-    if bool(card.ok) != bool(cpu.ok) or not bool(cpu.ok) \
-            or abs(int(card.n_inliers) - int(cpu.n_inliers)) \
-            > RELOC_CARD_CPU_INLIERS \
-            or assoc_agree < RELOC_CARD_CPU_ASSOC_AGREE \
-            or pose_err > RELOC_CARD_CPU_POSE_ATOL:
-        raise RuntimeError("relocalizer: card and CPU disagree")
+    cpu_map = MapState(*[t.cpu() for t in slam.map])
+    cpu_frame = FrameData(*[t.cpu() for t in frame])
+    bad = []
+    for seed in RELOC_CARD_CPU_SEEDS:
+        gen = torch.Generator(device=slam.device)
+        gen.manual_seed(seed)
+        noise = gumbel_noise(8, slam.cfg.orb.n_features, gen, slam.device)
+        card = relocalize(slam.map, frame, cands, noise)
+        cpu = relocalize(cpu_map, cpu_frame, cands.cpu(), noise.cpu())
+        card = type(card)(*[t.cpu() for t in card])
+        pose_err = float((card.pose - cpu.pose).abs().max())
+        assoc_agree = float((card.assoc == cpu.assoc).float().mean())
+        log(f"relocalizer card vs CPU, noise seed {seed}: ok "
+            f"{bool(card.ok)}/{bool(cpu.ok)}, inliers {int(card.n_inliers)}/"
+            f"{int(cpu.n_inliers)}, assoc agreement {assoc_agree:.4f}, pose "
+            f"err {pose_err:.3e}")
+        if bool(card.ok) != bool(cpu.ok) or not bool(cpu.ok) \
+                or abs(int(card.n_inliers) - int(cpu.n_inliers)) \
+                > RELOC_CARD_CPU_INLIERS \
+                or assoc_agree < RELOC_CARD_CPU_ASSOC_AGREE \
+                or pose_err > RELOC_CARD_CPU_POSE_ATOL:
+            bad.append(seed)
+    if bad:
+        raise RuntimeError(f"relocalizer: card and CPU disagree for noise "
+                           f"seeds {bad}")
 
 
 def stereo_config():
@@ -1249,31 +1292,39 @@ def stereo_config():
                       map=MapConfig())
 
 
-def render_pairs(cam):
-    """The first ``N_STEREO`` pairs of ``bench.py``'s 150-frame circuit
-    (no boxes, radius 2.5 m, one ray a pixel); the right eye is the left
-    pose moved by the baseline along its x axis."""
+def _render_pair(i):
+    """Pair i of the KITTI-shape circuit (runs in a worker process): the
+    right eye is the left pose moved by the baseline along its x axis;
+    one ray a pixel."""
     from active_orb_slam2_tpu_torch.io.synthetic import (
         default_world, loop_trajectory, render_rgbd)
-    world = default_world(n_boxes=0)
-    pairs, gt = [], []
-    for Twc in loop_trajectory(150, radius=2.5)[:N_STEREO]:
-        right = Twc.copy()
-        right[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array(
-            [STEREO_BASELINE_M, 0.0, 0.0], np.float32)
-        pairs.append(tuple(
-            np.clip(render_rgbd(world, cam, T, supersample=1)[0], 0,
-                    255).astype(np.uint8) for T in (Twc, right)))
-        gt.append(Twc[:3, 3].astype(np.float64))
-    return pairs, np.stack(gt)
+    Twc = loop_trajectory(N_STEREO_LOOP, radius=2.5)[i]
+    right = Twc.copy()
+    right[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array(
+        [STEREO_BASELINE_M, 0.0, 0.0], np.float32)
+    cam = stereo_config().camera
+    return tuple(np.clip(render_rgbd(default_world(n_boxes=0), cam, T,
+                                     supersample=1)[0], 0,
+                         255).astype(np.uint8) for T in (Twc, right))
 
 
-def phase_stereo(device):
-    """``System(cfg).track_stereo`` at the KITTI shape, then the stereo
-    matching of the first pair on the card against the CPU, and K2
-    against its plain version on the first left image.  Returns the
-    launch counts, K2's timing on that image with its bound, and K2's
-    angle error there."""
+def render_pairs():
+    """The 150 pairs of ``bench.py``'s circuit (no boxes, radius 2.5 m),
+    rendered in a pool of fresh processes, and the true centres."""
+    from active_orb_slam2_tpu_torch.io.synthetic import loop_trajectory
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+        pairs = pool.map(_render_pair, range(N_STEREO_LOOP))
+    return pairs, np.stack([T[:3, 3].astype(np.float64) for T in
+                            loop_trajectory(N_STEREO_LOOP, radius=2.5)])
+
+
+def phase_stereo(device, pairs, gt):
+    """``System(cfg).track_stereo`` at the KITTI shape over the first
+    ``N_STEREO`` pairs, then the stereo matching of the first pair on the
+    card against the CPU, and K2 against its plain version on the first
+    left image.  Returns the launch counts, K2's timing on that image
+    with its bound, and K2's angle error there."""
     import torch
     from active_orb_slam2_tpu_torch.kernels.keypoints import (
         keypoint_stage_cuda)
@@ -1282,10 +1333,7 @@ def phase_stereo(device):
     from active_orb_slam2_tpu_torch.ops.stereo import compute_stereo_matches
     cfg = stereo_config()
     cam = cfg.camera
-    t0 = time.perf_counter()
-    pairs, gt = render_pairs(cam)
-    log(f"rendered {N_STEREO} stereo pairs {cam.width}x{cam.height} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    pairs, gt = pairs[:N_STEREO], gt[:N_STEREO]
     slam = System(cfg, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1354,6 +1402,227 @@ def phase_stereo(device):
     return launches, kernel, bound_ms, err
 
 
+def phase_stereo_loop(device, pairs, gt):
+    """``bench.py::stereo_kitti_shape``'s whole window on the port:
+    ``System(cfg, use_loop_closing=True).track_stereo`` over the 150
+    KITTI-shape pairs, mapping and loop closing on.  One run: host syncs
+    counted with the sync debug mode on from pair ``WARMUP`` to the last
+    ``N_STEREO_TIMED`` pairs (outside the loop closer's waits), those
+    pairs timed; every pair OK, the rigid ATE, peak memory, the loop
+    closer's verifications and corrections, K1 twice a tracked pair (and
+    per relocalization attempt), K2 twice a pair."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.system import System
+    cfg = stereo_config()
+    slam = System(cfg, use_loop_closing=True, device=device)
+    lc = slam.loop_closer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    first = N_STEREO_LOOP - N_STEREO_TIMED
+    with recorded_relocalizers() as rec, \
+            timed_loop_waits(lc, quiet=True) as waits:
+        n_sync, where, _ = track_counting_syncs(slam, pairs[:first],
+                                                "track_stereo", 0.1)
+        slam.flush()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(first, N_STEREO_LOOP):
+            slam.track_stereo(*pairs[i], i * 0.1)
+        slam.flush()
+        torch.cuda.synchronize()
+        ms_frame = (time.perf_counter() - t0) / N_STEREO_TIMED * 1e3
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ate = trajectory_ate(slam, gt)
+    attempts = rec.calls
+    verify = [(round(ms, 1), bool(out[0])) for n, ms, _, out in waits.calls
+              if n == "compute_sim3"]
+    correct = [(round(ms, 1), bool(out[1])) for n, ms, _, out in waits.calls
+               if n == "correct"]
+    log(f"stereo with loop closing: {len(slam.metrics)} tracked pairs, "
+        f"keyframes {slam.kf_seq}, live {slam.n_live_kf}, vocabulary "
+        f"{lc.vocab is not None and lc.vocab.n_words} words, loops closed "
+        f"{slam.n_loops_closed}, candidates {lc.n_candidates}, verification "
+        f"failures {lc.n_verify_fail}, rejected {lc.n_rejected}, "
+        f"relocalization attempts {len(attempts)}, rigid ATE {ate:.5f} m")
+    log(f"stereo with loop closing: {ms_frame:.3f} ms/frame over pairs "
+        f"{first}-{N_STEREO_LOOP - 1} (host clock, synchronized), peak "
+        f"device memory {peak / 2**20:.1f} MiB, sync warnings outside the "
+        f"loop closer's waits (pairs {WARMUP}-{first - 1}) {n_sync} {where}, "
+        f"launches {launches}; verifications (ms, ok) {verify}, corrections "
+        f"(ms, accepted) {correct}")
+    check_all_ok(slam, "stereo with loop closing",
+                 n_tracked=N_STEREO_LOOP - 1)
+    if launches != {"pose_opt": 2 * (N_STEREO_LOOP - 1) + 2 * len(attempts),
+                    "keypoints": 2 * N_STEREO_LOOP}:
+        raise RuntimeError(f"stereo with loop closing: launches {launches}")
+    if not ate <= STEREO_LOOP_ATE_BOUND_M:
+        raise RuntimeError(f"stereo with loop closing: ATE {ate:.5f} m above "
+                           f"{STEREO_LOOP_ATE_BOUND_M} m")
+    if peak > LOOP_PEAK_BYTES:
+        raise RuntimeError(f"stereo with loop closing: peak memory "
+                           f"{peak / 2**20:.1f} MiB above 1 GiB")
+    if n_sync:
+        raise RuntimeError(f"stereo with loop closing: {n_sync} synchronizing "
+                           f"calls outside the loop closer's waits: {where}")
+    return launches
+
+
+def retrain_frames():
+    """``scripts/run_torch_endurance.py``'s tour at 320x240: its
+    configuration and the 1,000 unique poses, rendered in its process
+    pool."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "scripts"))
+    import run_torch_endurance as endurance
+    cache = endurance.render_cache("tour", 1000, 0, 320, 240)
+    return endurance.camera_config(320, 240), cache
+
+
+def phase_retrain(device, cfg, cache):
+    """The endurance tour on the card until ``RETRAIN_EVENTS_AFTER``
+    keyframe events after the loop closer's 48-keyframe retrain, in one
+    run with the sync debug mode on after ``WARMUP`` frames (the loop
+    closer's waits, vocabulary training among them, quiet and timed).
+    Checks the retrain (stage 2, 10,000 words), that every later scoring
+    took the sparse path, that the sparse rows of every live keyframe
+    were rebuilt, every frame OK, no other host sync, the peak, K1 twice
+    a tracked frame (and per relocalization attempt) and K2 once a frame;
+    then the card against the CPU on the final arena with the retrained
+    vocabulary: word ids of every live row equal and its weights within
+    ``RETRAIN_WEIGHT_ATOL``, each live keyframe's L1 scores against the
+    live keyframes within
+    ``RETRAIN_SCORE_ATOL`` and its DetectLoop candidates and decision
+    equal."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.loop_closing import LoopCloser
+    from active_orb_slam2_tpu_torch.models.map_state import (
+        MapState, covisibility_weights)
+    from active_orb_slam2_tpu_torch.models.system import System
+    t_phase = time.perf_counter()
+    slam = System(cfg, use_loop_closing=True, device=device)
+    lc = slam.loop_closer
+    frames = [(g, d) for g, d, _ in cache]
+    retrain = {}
+
+    def until(i):
+        if lc._vocab_stage == 2 and not retrain:
+            # the retraining event's detection rebuilt every live row
+            hf = lc._host_fid
+            retrain.update(frame=i, kf_seq=slam.kf_seq, live=slam.n_live_kf,
+                           rebuilt=bool(np.array_equal(lc._bow_fid[hf >= 0],
+                                                       hf[hf >= 0])))
+        return bool(retrain) and \
+            slam.kf_seq >= retrain["kf_seq"] + RETRAIN_EVENTS_AFTER
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    inputs = (frames[i % len(frames)] for i in range(RETRAIN_MAX_FRAMES))
+    with recorded_relocalizers() as rec, scoring_paths(lc) as paths, \
+            timed_loop_waits(lc, quiet=True) as waits:
+        n_sync, where, n = track_counting_syncs(slam, inputs, "track_rgbd",
+                                                1 / 30.0, until=until)
+        slam.flush()
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    gt = np.stack([cache[i % len(cache)][2].astype(np.float64)
+                   for i in range(n)])
+    ate = trajectory_ate(slam, gt)
+    attempts = rec.calls
+    trainings = [(round(ms, 1), out.n_words) for name, ms, _, out in
+                 waits.calls if name == "ensure_vocabulary" and out is not None]
+    words = sorted(set(w for _, w in trainings))
+    verify = [round(ms, 1) for name, ms, _, _ in waits.calls
+              if name == "compute_sim3"]
+    after = {k: [s for s in v if s == 2] for k, v in paths.calls.items()}
+    log(f"retrain: {n} frames of the tour, keyframes {slam.kf_seq}, live "
+        f"{slam.n_live_kf}, retrain at frame {retrain.get('frame')} "
+        f"(keyframe {retrain.get('kf_seq')}, {retrain.get('live')} live), "
+        f"vocabulary stage {lc._vocab_stage}, {lc.vocab.n_words} words; "
+        f"retrain stall (descriptor read, training, cache drop) "
+        f"{lc.last_retrain_ms:.1f} ms; ensure_vocabulary calls that trained "
+        f"(ms synchronized, words) "
+        f"{[t for t in trainings if t[0] > 50.0]}; scorings after the "
+        f"retrain: sparse {len(after['sparse'])}, dense {len(after['dense'])}")
+    log(f"retrain: loops closed {slam.n_loops_closed}, candidates "
+        f"{lc.n_candidates}, verification failures {lc.n_verify_fail}, "
+        f"rejected {lc.n_rejected}, verifications {len(verify)} "
+        f"(median {np.median(verify) if verify else 0:.1f} ms, sum "
+        f"{sum(verify) / 1e3:.1f} s), relocalization attempts "
+        f"{len(attempts)}, rigid ATE {ate:.5f} m, peak {peak / 2**20:.1f} "
+        f"MiB, sync warnings outside the loop closer's waits {n_sync} "
+        f"{where}, launches {launches}")
+    check_all_ok(slam, "retrain", n_tracked=n - 1)
+    if lc._vocab_stage != 2 or lc.vocab.n_words != RETRAIN_WORDS \
+            or RETRAIN_WORDS not in words:
+        raise RuntimeError(f"retrain: no {RETRAIN_WORDS}-word retrain in "
+                           f"{n} frames (stage {lc._vocab_stage})")
+    if slam.kf_seq < retrain["kf_seq"] + RETRAIN_EVENTS_AFTER:
+        raise RuntimeError("retrain: fewer than 8 keyframe events after it")
+    if not after["sparse"] or after["dense"]:
+        raise RuntimeError(f"retrain: scorings after it {after}")
+    if not retrain["rebuilt"]:
+        raise RuntimeError("retrain: a live keyframe's sparse row was not "
+                           "rebuilt at the retrain")
+    if launches != {"pose_opt": 2 * (n - 1) + 2 * len(attempts),
+                    "keypoints": n}:
+        raise RuntimeError(f"retrain: launches {launches}")
+    if peak > LOOP_PEAK_BYTES:
+        raise RuntimeError(f"retrain: peak memory {peak / 2**20:.1f} MiB "
+                           f"above 1 GiB")
+    if n_sync:
+        raise RuntimeError(f"retrain: {n_sync} synchronizing calls outside "
+                           f"the loop closer's waits: {where}")
+
+    # the card against the CPU on the final arena, retrained vocabulary
+    # (the card's rows of keyframes inserted since the last detection are
+    # brought up to date, as the next event would)
+    m = slam.map
+    live = np.array(sorted(slam._live_slots))
+    lc.refresh_bows(m)
+    m_cpu = MapState(*[t.cpu() for t in m])
+    cpu = LoopCloser(cfg, recent_frames_guard=lc.recent_frames_guard)
+    cpu.vocab, cpu._vocab_stage = lc.vocab.to("cpu"), lc._vocab_stage
+    cpu._host_fid = lc._host_fid.copy()
+    cpu.refresh_bows(m_cpu)
+    words_eq = torch.equal(lc._bow_words[live].cpu(),
+                           cpu._bow_words[live])
+    weight_err = float((lc._bow_weights[live].cpu()
+                        - cpu._bow_weights[live]).abs().max())
+    W, W_cpu = covisibility_weights(m), covisibility_weights(m_cpu)
+    C1 = max(lc.consistency_th - 1, 0)
+    score_err, same_det = 0.0, 0
+    for k in live:
+        s_card = lc.score_kf(m, int(k))
+        s_cpu = cpu.score_kf(m_cpu, int(k))
+        # live slots only: a culled slot keeps its last row until it is
+        # re-tenanted, and detection masks it
+        score_err = max(score_err, float(
+            (s_card.cpu() - s_cpu)[live].abs().max()))
+        # earlier groups that accepted everything: the decision is the
+        # best candidate this group accepts
+        every = torch.ones((C1, m.max_keyframes), dtype=torch.bool)
+        c_card, ok_card, buf_card = lc._detect(m, int(k), W, s_card,
+                                               every.to(device))
+        c_cpu, ok_cpu, buf_cpu = cpu._detect(m_cpu, int(k), W_cpu, s_cpu,
+                                             every)
+        same_det += int(int(c_card) == int(c_cpu)
+                        and bool(ok_card) == bool(ok_cpu)
+                        and torch.equal(buf_card.cpu(), buf_cpu))
+    log(f"retrain card vs CPU on the final arena ({len(live)} live "
+        f"keyframes): sparse word ids equal {words_eq}, weight err "
+        f"{weight_err:.3g}, L1 score err {score_err:.3g}, DetectLoop candidates "
+        f"and decision equal for {same_det} of {len(live)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not words_eq or weight_err > RETRAIN_WEIGHT_ATOL \
+            or score_err > RETRAIN_SCORE_ATOL \
+            or same_det != len(live):
+        raise RuntimeError("retrain: card and CPU disagree")
+    return launches
+
+
 def _render_loop_frame(i):
     """Frame i of the loop circle at VGA (runs in a worker process)."""
     from active_orb_slam2_tpu_torch.io.synthetic import (
@@ -1410,30 +1679,95 @@ def sync_waits_allowed(lc):
                                 "correct"), quiet)
 
 
-def timed_loop_waits(lc):
+def timed_loop_waits(lc, quiet=False):
     """Each ``compute_sim3`` and ``correct`` call of the loop closer is
     timed on the host clock, synchronized at both ends, with the kernel
     launches it made: the context's ``calls`` holds (name, ms, launches,
-    result)."""
+    result).  With ``quiet`` the vocabulary training is timed too, and
+    each call (its synchronizations included) runs with the sync debug
+    mode off, as in ``sync_waits_allowed``."""
     import torch
     calls = []
 
     def timed(name, fn):
         def call(*args, **kw):
-            before = kernel_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            after = kernel_launches()
+            mode = torch.cuda.get_sync_debug_mode()
+            if quiet:
+                torch.cuda.set_sync_debug_mode(0)
+            try:
+                before = kernel_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                after = kernel_launches()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
             calls.append((name, ms, {k: after[k] - before[k] for k in after},
                           out))
             return out
         return call
-    ctx = wrapped_methods(lc, ("compute_sim3", "correct"), timed)
+    names = ("compute_sim3", "correct") + (("ensure_vocabulary",)
+                                           if quiet else ())
+    ctx = wrapped_methods(lc, names, timed)
     ctx.calls = calls
     return ctx
+
+
+class scoring_paths:
+    """Inside the ``with``, the loop closer's L1 scorings are recorded by
+    path (``dense``, ``sparse``) with the vocabulary stage of ``lc`` at
+    the call."""
+
+    def __init__(self, lc):
+        self.lc, self.calls = lc, {"dense": [], "sparse": []}
+
+    def __enter__(self):
+        from active_orb_slam2_tpu_torch.models import loop_closing
+        self._plain = {}
+        for name, kind in (("l1_score", "dense"),
+                           ("l1_score_sparse", "sparse")):
+            fn = self._plain[name] = getattr(loop_closing, name)
+
+            def counted(*a, _fn=fn, _kind=kind, **kw):
+                self.calls[_kind].append(self.lc._vocab_stage)
+                return _fn(*a, **kw)
+            setattr(loop_closing, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from active_orb_slam2_tpu_torch.models import loop_closing
+        for name, fn in self._plain.items():
+            setattr(loop_closing, name, fn)
+
+
+def track_counting_syncs(slam, frames, track, dt, start=WARMUP, stop=None,
+                         until=None):
+    """Track ``frames`` with the sync debug mode on for frames
+    ``start``.. ``stop`` - 1 (every later frame from ``start`` when
+    ``stop`` is None); ``until(i)`` ends the run after frame i.  Returns
+    (synchronizing calls counted, the first places that made them,
+    frames tracked)."""
+    import torch
+    n, where, i = 0, [], -1
+    for i, images in enumerate(frames):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if i >= start and (stop is None or i < stop):
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                getattr(slam, track)(*images, i * dt)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        for w in caught:
+            if "called a synchronizing CUDA operation" in str(w.message):
+                n += 1
+                if len(where) < 8:
+                    where.append(f"frame {i} {w.filename}:{w.lineno}")
+        if until is not None and until(i):
+            break
+    return n, where, i + 1
 
 
 def loop_inputs(frames, traj):
@@ -2487,8 +2821,9 @@ def main():
 
     cfg = vga_config()
     t0 = time.perf_counter()
-    frames, gt = render_frames(cfg.camera)
-    log(f"rendered {N_FRAMES} VGA frames in {time.perf_counter() - t0:.1f} s")
+    frames, gt = render_frames()
+    log(f"rendered {N_FRAMES} VGA frames in {time.perf_counter() - t0:.1f} s "
+        f"(process pool)")
     t0 = time.perf_counter()
     loop_frames, loop_traj = render_loop_frames()
     log(f"rendered {N_LOOP} VGA frames of the loop circle in "
@@ -2497,6 +2832,14 @@ def main():
     mono_frames, mono_gt = render_mono_frames()
     log(f"rendered {N_MONO} VGA frames of the mono orbit in "
         f"{time.perf_counter() - t0:.1f} s (process pool)")
+    t0 = time.perf_counter()
+    pairs, pairs_gt = render_pairs()
+    log(f"rendered {N_STEREO_LOOP} KITTI-shape stereo pairs in "
+        f"{time.perf_counter() - t0:.1f} s (process pool)")
+    t0 = time.perf_counter()
+    retrain_cfg, retrain_cache = retrain_frames()
+    log(f"rendered the tour's {len(retrain_cache)} unique poses at 320x240 "
+        f"in {time.perf_counter() - t0:.1f} s (process pool)")
 
     checks = {"pose_opt": phase_k1(device, cfg.camera),
               "keypoints": phase_k2(device, cfg, frames[0][0])}
@@ -2521,13 +2864,18 @@ def main():
     del reuse_slam
     runs["stereo_launches"], k2_kitti, \
         checks["keypoints"]["extra"]["bound_ms_kitti"], k2_err = phase_stereo(
-            device)
+            device, pairs, pairs_gt)
     checks["keypoints"]["variants"]["ms_kitti"] = k2_kitti
     checks["keypoints"]["max_abs_err"] = max(
         checks["keypoints"]["max_abs_err"], k2_err)
+    runs["stereo_loop_launches"] = phase_stereo_loop(device, pairs, pairs_gt)
+    del pairs
     runs["loop_launches"] = phase_loop_pipeline(device, loop_frames,
                                                 loop_traj)
     runs["closure_launches"] = phase_closure(device, loop_frames, loop_traj)
+    runs["retrain_launches"] = phase_retrain(device, retrain_cfg,
+                                             retrain_cache)
+    del retrain_cache
     runs["mono_launches"] = phase_mono(device, mono_frames, mono_gt)
     runs["explore_launches"] = phase_explore(device, arena)
     del arena

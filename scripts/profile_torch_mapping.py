@@ -186,7 +186,7 @@ def main():
     print(smi.splitlines()[0] if smi else "nvidia-smi gave nothing")
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    frames, _ = cs.render_frames(cs.vga_config("mapping").camera)
+    frames, _ = cs.render_frames()
     print(f"rendered {len(frames)} VGA frames in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     runs, slam = slice_runs(frames, device)

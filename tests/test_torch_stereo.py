@@ -28,6 +28,7 @@ from active_orb_slam2_tpu_torch.models import system as tsys
 from active_orb_slam2_tpu_torch.ops import stereo as tstereo
 from active_orb_slam2_tpu_torch.ops.orb import OrbFeatures
 from active_orb_slam2_tpu_torch.utils.evaluate import umeyama_alignment
+from tests.test_torch_mapping import jax_write_back
 from tests.test_torch_tracking import configs
 
 torch.set_num_threads(1)
@@ -131,6 +132,48 @@ def test_stereo_sad_filter_acts_when_every_feature_matched(pair_features):
     assert 0 < ok.sum() < len(keep), (len(keep), ok.sum())
 
 
+def test_stereo_depth_is_bf_over_disparity_exactly(pair_features):
+    """The depth of each match is bf / disparity rounded once, bit for bit
+    the JAX package's (``cam.bf / tensor`` in PyTorch is a reciprocal
+    times bf, which rounds twice and parted in the last bit for about a
+    fifth of the features; at the KITTI shape that rounding of the
+    initial map's points turned the first tracked pair's motion stage
+    from 86 inliers to 0)."""
+    fl, fr, il, ir = pair_features
+    (jur, jdep), (tur, tdep) = both_stereo(fl, fr, il, ir)
+    np.testing.assert_array_equal(tur, jur)
+    np.testing.assert_array_equal(tdep, jdep)
+
+
+def test_rgbd_virtual_right_is_one_division():
+    """RGB-D's virtual right coordinate u - bf / d, bit for bit the JAX
+    package's, on seeded keypoints over a depth map with holes."""
+    from active_orb_slam2_tpu.models import frame as jframe
+    from active_orb_slam2_tpu.ops.orb import OrbFeatures as JFeat
+    from active_orb_slam2_tpu_torch.models import frame as tframe
+    rng = np.random.default_rng(5)
+    n, cam = 512, JC.camera
+    feats = dict(
+        uv=rng.uniform(0, [cam.width - 1, cam.height - 1], (n, 2)).astype(
+            np.float32),
+        level=rng.integers(0, 4, n).astype(np.int32),
+        angle=rng.uniform(0, 6.28, n).astype(np.float32),
+        response=rng.uniform(0, 50, n).astype(np.float32),
+        desc=rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32),
+        valid=rng.random(n) < 0.9)
+    depth = rng.uniform(0.3, 9.0, (cam.height, cam.width)).astype(np.float32)
+    depth[rng.random(depth.shape) < 0.2] = 0.0
+    fj = jframe.frame_from_features(
+        JFeat(**{k: jnp.asarray(v) for k, v in feats.items()}), JC.camera,
+        jnp.asarray(depth))
+    ft = tframe.frame_from_features(
+        OrbFeatures(**{k: convert.to_torch(v) for k, v in feats.items()}),
+        TC.camera, torch.from_numpy(depth))
+    assert (np.asarray(fj.ur) >= 0).sum() > 300
+    np.testing.assert_array_equal(ft.ur.numpy(), np.asarray(fj.ur))
+    np.testing.assert_array_equal(ft.depth.numpy(), np.asarray(fj.depth))
+
+
 def run_stereo(slam, n_frames, n_traj=None):
     """Track the first ``n_frames`` pairs of the orbit; returns the state
     and the tracked camera centre after each, and the true centres."""
@@ -183,22 +226,73 @@ def test_stereo_pipeline_tracks_20_frames():
     assert umeyama_alignment(est, gt, fix_scale=True)[4] < 0.06
 
 
-@pytest.mark.slow
-def test_stereo_kitti_shape_ate_beside_jax():
-    """The first 30 pairs of ``bench.py::stereo_kitti_shape`` (1226x370,
-    2000 features, mapping on, loop closing off on both sides), the
-    stereo run of ``chip_smoke.py``, through both packages on the CPU:
-    every frame tracks, and the port's ATE (rigid, scale 1) stays within
-    5 mm of the JAX package's.  Full size: a run takes minutes and a few
-    GiB, so it is meant for a machine with room for it."""
+def circuit_pairs(cam, n, base=BASELINE, supersample=2):
+    """The first ``n`` stereo pairs of ``bench.py``'s 150-frame circuit
+    (no boxes, radius 2.5 m) and their true centres; the right eye is the
+    left pose moved by the baseline along its x axis."""
+    world = jsyn.default_world(n_boxes=0)
+    pairs, gt = [], []
+    for Twc in jsyn.loop_trajectory(150, radius=2.5)[:n]:
+        right = Twc.copy()
+        right[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array([base, 0, 0],
+                                                           np.float32)
+        pairs.append([np.clip(jsyn.render_rgbd(world, cam, T,
+                                               supersample=supersample)[0],
+                              0, 255).astype(np.uint8) for T in (Twc, right)])
+        gt.append(Twc[:3, 3])
+    return pairs, np.stack(gt)
+
+
+def track_pairs(slam, pairs, gt, centres, dt):
+    """Each pair retired before the next; returns the rigid ATE and
+    (state, keyframes, live points) after every pair."""
+    rows = []
+    for i, (left, right) in enumerate(pairs):
+        slam.track_stereo(left, right, i * dt)
+        rows.append((int(slam.state), slam.kf_seq,
+                     int(np.asarray(slam.map.pt_valid.sum()))))
+    est = np.asarray(centres(slam.frame_trajectory()[1]))
+    return umeyama_alignment(est, gt, fix_scale=True)[4], rows
+
+
+def test_stereo_gap_is_the_local_ba_write_back():
+    """The stereo ATE gap (ROADMAP queue 3, item m): the first 20 pairs of
+    the circuit at 320x240 (mapping on, a keyframe at least every 8
+    pairs) through both packages.  The port and the JAX package part
+    (measured: port 0.009901 m, JAX 0.012604 m); with the JAX package's
+    local-BA write-back patched into the port, the port makes the JAX
+    package's keyframes and point counts after every pair and its ATE
+    comes within 1e-4 m of the JAX package's (measured 3.6e-5 m)."""
+    from active_orb_slam2_tpu.io.trajectory import camera_centers as jcc
+    jc, tc = (dataclasses.replace(c, tracking=dataclasses.replace(
+        c.tracking, kf_max_interval=8)) for c in (JC, TC))
+    pairs, gt = circuit_pairs(jc.camera, 20)
+    ate_j, rows_j = track_pairs(jsys.System(jc, pipeline_depth=0,
+                                            retire_batch=1), pairs, gt, jcc,
+                                0.1)
+    ate_t, rows_t = track_pairs(tsys.System(tc, device="cpu"), pairs, gt,
+                                camera_centers, 0.1)
+    with jax_write_back():
+        ate_w, rows_w = track_pairs(tsys.System(tc, device="cpu"), pairs, gt,
+                                    camera_centers, 0.1)
+    assert all(r[0] == tsys.OK for r in rows_t + rows_w)
+    assert rows_w == rows_j, (rows_w, rows_j)
+    assert rows_t != rows_j
+    assert abs(ate_w - ate_j) <= 1e-4, (ate_w, ate_j)
+    assert abs(ate_t - ate_j) > 1e-3, (ate_t, ate_j)
+
+
+def kitti_configs(base=0.12):
+    """``bench.py::stereo_kitti_shape``'s configuration in each package:
+    1226x370, 2000 features, 8 levels, ThDepth 35 baselines, a keyframe
+    at least every 8 pairs, the default arena."""
     from active_orb_slam2_tpu.config import (MapConfig, OrbConfig,
                                              SlamConfig, TrackingConfig)
     from active_orb_slam2_tpu.geometry.projection import CameraParams
-    from active_orb_slam2_tpu.io.trajectory import camera_centers as jcc
     from active_orb_slam2_tpu_torch import config as tcfg
     from active_orb_slam2_tpu_torch.geometry.projection import (
         CameraParams as TCam)
-    w, h, f, base = 1226, 370, 707.0, 0.12
+    w, h, f = 1226, 370, 707.0
     cam = dict(fx=f, fy=f, cx=(w - 1) / 2.0, cy=(h - 1) / 2.0, bf=f * base,
                width=w, height=h)
     jc = SlamConfig(camera=CameraParams(**cam),
@@ -211,17 +305,20 @@ def test_stereo_kitti_shape_ate_beside_jax():
                          tracking=tcfg.TrackingConfig(th_depth=35.0 * base,
                                                       kf_max_interval=8),
                          map=tcfg.MapConfig())
-    world = jsyn.default_world(n_boxes=0)
-    pairs, gt = [], []
-    for Twc in jsyn.loop_trajectory(150, radius=2.5)[:30]:
-        right = Twc.copy()
-        right[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array([base, 0, 0],
-                                                           np.float32)
-        pairs.append([np.clip(jsyn.render_rgbd(world, jc.camera, T,
-                                               supersample=1)[0], 0,
-                              255).astype(np.uint8) for T in (Twc, right)])
-        gt.append(Twc[:3, 3])
-    gt = np.stack(gt)
+    return jc, tc
+
+
+@pytest.mark.slow
+def test_stereo_kitti_shape_ate_beside_jax():
+    """The first 30 pairs of ``bench.py::stereo_kitti_shape`` (1226x370,
+    2000 features, mapping on, loop closing off on both sides), the
+    stereo run of ``chip_smoke.py``, through both packages on the CPU:
+    every frame tracks, and the port's ATE (rigid, scale 1) stays within
+    5 mm of the JAX package's.  Full size: a run takes minutes and a few
+    GiB, so it is meant for a machine with room for it."""
+    from active_orb_slam2_tpu.io.trajectory import camera_centers as jcc
+    jc, tc = kitti_configs()
+    pairs, gt = circuit_pairs(jc.camera, 30, base=0.12, supersample=1)
     ates = {}
     for name, slam, centres, ok in (
             ("jax", jsys.System(jc, use_loop_closing=False, pipeline_depth=0,
@@ -237,3 +334,31 @@ def test_stereo_kitti_shape_ate_beside_jax():
         print(f"KITTI-shape stereo ATE over 30 pairs, {name}: "
               f"{ates[name]:.5f} m", flush=True)
     assert abs(ates["port"] - ates["jax"]) <= 5e-3, ates
+
+
+@pytest.mark.slow
+def test_stereo_kitti_shape_gap_is_the_write_back():
+    """The same 30 KITTI-shape pairs, each retired before the next: with
+    the JAX package's local-BA write-back patched in, the port makes the
+    JAX package's keyframes after every pair, its point counts within 1%
+    (keypoint angles still part in the last bits, quirk a; measured: one
+    point off from pair 6) and its ATE comes within 1e-4 m of the JAX
+    package's (ROADMAP queue 3, item m; measured 0.009951 m against
+    0.009901 m).  Full size: meant for a machine with room for it."""
+    from active_orb_slam2_tpu.io.trajectory import camera_centers as jcc
+    jc, tc = kitti_configs()
+    pairs, gt = circuit_pairs(jc.camera, 30, base=0.12, supersample=1)
+    ate_j, rows_j = track_pairs(jsys.System(jc, pipeline_depth=0,
+                                            retire_batch=1), pairs, gt, jcc,
+                                0.1)
+    with jax_write_back():
+        ate_w, rows_w = track_pairs(tsys.System(tc, device="cpu"), pairs, gt,
+                                    camera_centers, 0.1)
+    off = max(abs(w[2] - j[2]) / j[2] for w, j in zip(rows_w, rows_j))
+    print(f"KITTI-shape stereo ATE over 30 pairs: JAX {ate_j:.6f} m, port "
+          f"with the JAX write-back {ate_w:.6f} m; point counts at most "
+          f"{off:.4%} apart", flush=True)
+    assert [w[:2] for w in rows_w] == [j[:2] for j in rows_j], (rows_w,
+                                                                 rows_j)
+    assert off <= 0.01, (rows_w, rows_j)
+    assert abs(ate_w - ate_j) <= 1e-4, (ate_w, ate_j)
