@@ -1,4 +1,4 @@
-"""Geometry core: SE3 ops and the camera model (PyTorch)."""
+"""Geometry core: SE3 ops, the camera model and alignment (PyTorch)."""
 
 from active_orb_slam2_tpu_torch.geometry.se3 import (  # noqa: F401
     quat_normalize, quat_mul, quat_conj, quat_rotate, quat_to_mat,
@@ -6,5 +6,9 @@ from active_orb_slam2_tpu_torch.geometry.se3 import (  # noqa: F401
     se3_retract, se3_to_mat44,
 )
 from active_orb_slam2_tpu_torch.geometry.projection import (  # noqa: F401
-    CameraParams, project, project_stereo, in_frustum, predict_scale,
+    CameraParams, backproject, project, project_stereo, in_frustum,
+    predict_scale,
+)
+from active_orb_slam2_tpu_torch.geometry.horn import (  # noqa: F401
+    horn_align, umeyama_alignment,
 )

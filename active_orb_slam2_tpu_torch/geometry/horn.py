@@ -1,11 +1,13 @@
-"""Horn's closed-form absolute orientation (the Sim3 RANSAC's solver).
+"""Horn's closed-form absolute orientation (the Sim3 RANSAC's solver)
+and the trajectory alignment of ATE.
 
-Port of ``active_orb_slam2_tpu/geometry/horn.py::horn_align``: Horn's
-1987 quaternion method, batched over leading axes, so the Sim3 RANSAC
-solves all its hypotheses in one 4x4 ``eigh``.  The JAX module's
-``umeyama_alignment`` (trajectory ATE) has its counterpart in the port's
-numpy ``utils/evaluate.py::umeyama_alignment``, which is the one the
-port keeps.
+Port of ``active_orb_slam2_tpu/geometry/horn.py``.  ``horn_align`` is
+Horn's 1987 quaternion method, batched over leading axes, so the Sim3
+RANSAC solves all its hypotheses in one 4x4 ``eigh``.
+``umeyama_alignment`` aligns two trajectories' positions for ATE; it
+runs on the host in float64 numpy (Umeyama's SVD solution, the same
+least-squares optimum as Horn's method) and returns the rotation as a
+matrix where the JAX function returns a quaternion.
 
 ``torch.linalg.eigh`` raises on a non-finite matrix where JAX returns
 NaN, so such systems are solved as the identity and their results set
@@ -13,6 +15,7 @@ to NaN.  Its error check waits on the card; the one caller,
 ``LoopCloser.compute_sim3``, waits for its verdict anyway.
 """
 
+import numpy as np
 import torch
 
 from active_orb_slam2_tpu_torch.geometry.se3 import quat_rotate
@@ -60,3 +63,26 @@ def horn_align(src, dst, weights=None, fix_scale: bool = False):
         s = num / den
     t = mu_d - s[..., None] * quat_rotate(q, mu_s)
     return q, t, s
+
+
+def umeyama_alignment(src, dst, fix_scale: bool = False):
+    """Similarity (or, with ``fix_scale``, rigid) transform with
+    dst ~ s R src + t for [N, 3] point sets.
+
+    Returns (aligned_src [N, 3], R [3, 3], t [3], s, rmse).
+    """
+    src = np.asarray(src, np.float64)
+    dst = np.asarray(dst, np.float64)
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    cs, cd = src - mu_s, dst - mu_d
+    U, D, Vt = np.linalg.svd(cd.T @ cs / len(src))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1.0
+    R = U @ S @ Vt
+    s = 1.0 if fix_scale else float(np.trace(np.diag(D) @ S)
+                                    / max((cs * cs).sum(1).mean(), 1e-12))
+    t = mu_d - s * R @ mu_s
+    aligned = s * src @ R.T + t
+    rmse = float(np.sqrt(((aligned - dst) ** 2).sum(1).mean()))
+    return aligned, R, t, s, rmse

@@ -43,6 +43,13 @@ class CameraParams(NamedTuple):
     def baseline(self):
         return self.bf / self.fx
 
+    @property
+    def K(self):
+        """The 3x3 intrinsic matrix, float32 on the CPU."""
+        return torch.tensor([[self.fx, 0.0, self.cx],
+                             [0.0, self.fy, self.cy],
+                             [0.0, 0.0, 1.0]], dtype=torch.float32)
+
 
 def _safe_inv_z(z):
     return 1.0 / torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
@@ -63,6 +70,13 @@ def project_stereo(cam: CameraParams, pc):
     uv, z = project(cam, pc)
     ur = uv[..., 0] - cam.bf * _safe_inv_z(z)
     return torch.cat([uv, ur[..., None]], dim=-1), z
+
+
+def backproject(cam: CameraParams, uv, depth):
+    """Pixels [..., 2] and depth [...] -> camera-frame points [..., 3]."""
+    x = (uv[..., 0] - cam.cx) / cam.fx * depth
+    y = (uv[..., 1] - cam.cy) / cam.fy * depth
+    return torch.stack([x, y, depth], dim=-1)
 
 
 def predict_scale(dist, max_dist, scale_factor: float, n_levels: int):

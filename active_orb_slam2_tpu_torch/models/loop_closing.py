@@ -328,6 +328,17 @@ class LoopCloser:
                 "fids": fids, "kf_seq": kf_seq,
                 "copy": to_pinned(torch.stack([cand, ok.to(torch.int32)]))}
 
+    def detect(self, m: MapState, cur_kf: int, W=None, n_live_kf=None):
+        """Synchronous DetectLoop: the candidate keyframe slot, or -1.  A
+        test and diagnostic path on top of :meth:`detect_async` that
+        waits on the card for the decision; ``System`` never calls it
+        (it reads each decision at the next keyframe event)."""
+        pend = self.detect_async(m, cur_kf, W=W, n_live_kf=n_live_kf)
+        if pend is None:
+            return -1
+        cand, ok = landed(*pend["copy"])
+        return int(cand) if ok else -1
+
     # ---------------------------------------------------------------- verify
 
     def _noise(self, n_hyp: int, m: int, device):

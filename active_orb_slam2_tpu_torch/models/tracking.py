@@ -164,6 +164,15 @@ def _pose_opt_from_assoc(cam, pose0, m: MapState, frame: FrameData, assoc):
                      (assoc >= 0) & m.pt_valid[pt])
 
 
+def apply_visibility_counters(m: MapState, visible_mask, found_mask
+                              ) -> MapState:
+    """IncreaseVisible / IncreaseFound (the point-culling signals): add
+    the masks [P] to the arena's counters in place; returns ``m``."""
+    m.pt_visible.add_(visible_mask.to(torch.int32))
+    m.pt_found.add_(found_mask.to(torch.int32))
+    return m
+
+
 def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
     """Return the per-frame tracking step with the fused keyframe
     decision and insertion:
@@ -287,9 +296,7 @@ def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
         close = frame.valid & (frame.depth > 0.1) \
             & (frame.depth < tcfg.th_depth)
 
-        # visibility counters (MapPoint::IncreaseVisible / IncreaseFound)
-        m.pt_visible.add_(visible_mask.to(torch.int32))
-        m.pt_found.add_(found_mask.to(torch.int32))
+        apply_visibility_counters(m, visible_mask, found_mask)
 
         # ---- NeedNewKeyFrame + CreateNewKeyFrame, decided on device ------
         close_tracked = (close & (assoc >= 0)).sum()

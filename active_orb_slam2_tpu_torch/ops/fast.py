@@ -21,6 +21,8 @@ CIRCLE_OFFSETS = np.array([
     (3, 0), (3, -1), (2, -2), (1, -3), (0, -3), (-1, -3), (-2, -2), (-3, -1),
 ], dtype=np.int32)
 
+ARC_LEN = 9  # FAST-9/16
+
 
 def bf16_round(x):
     """Round float32 values to the nearest bfloat16, kept as float32."""

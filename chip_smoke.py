@@ -19,16 +19,28 @@ Phases (each raises, and so exits nonzero, on failure):
    every border of each level, with one level empty;
 4. the tracking slice: ``System(cfg, use_mapping=False).track_rgbd``
    over 42 VGA frames of the synthetic orbit (the JAX package's
-   ``bench.py`` tracking-window configuration), checking every frame
-   tracks, that the main path launched both kernels, and the ATE
-   against ground truth;
+   ``bench.py`` tracking-window configuration), run and timed by
+   ``bench_torch.tracking_window``, checking every frame tracks, that
+   the main path launched both kernels, and the ATE against ground
+   truth;
 5. the mapping slice: ``System(cfg_map).track_rgbd`` with local mapping
    on the same frames (``bench.py``'s full-pipeline configuration
    without loop closing: default 512-keyframe arena, a keyframe at
    least every 8 frames), with its launch counts, ATE, keyframe count,
    ms/frame, peak device memory, and host syncs counted on a second run;
+5b. the distorted camera: the mapping slice's configuration with TUM
+   fr1's calibration and radtan distortion (the undistorted image bounds
+   applied) over the 42 orbit frames seen by that camera, gray and depth
+   warped into it in a process pool: every frame OK, rigid ATE <= 0.06
+   m, a run with the distortion left unmodelled more than twice that
+   ATE, K2 once a frame and K1 twice a tracked frame, host syncs
+   counted on a second run, peak memory, ms/frame; the undistorted
+   keypoints of one frame on the card against the CPU within 1e-4 px;
+   then ``tests/test_undistort.py``'s own radtan profile on the same
+   intrinsics and frames, held to the same two ATE bars;
 6. one keyframe-mapping call on the card against the same call on the
-   CPU, from the final arena of the mapping slice, and its time;
+   CPU, from the final arena of the mapping slice, and its time
+   (``bench_torch.mapping_timing``);
 7. an arena-full run (8 keyframes, a keyframe every 2 frames), where
    keyframe culling, forced eviction and slot recycling run, with its
    launch counts, and the card-vs-CPU check on the arena of its first
@@ -126,17 +138,21 @@ Phases (each raises, and so exits nonzero, on failure):
     points, chi2, ms per LM iteration, collectives and bytes reduced per
     LM iteration; (d) the sharded matcher on those ranks (M = 65,536, N =
     4,096) against ``match_mutual`` on the card; neither kernel runs;
+17b. ``bench_torch.ba_op_floor_evidence`` once (a chained [3072]
+    matvec, a [3072, 3072] float32 matmul chain, ``global_ba``'s marginal
+    ms and ops per CG step), before the profiler of phase 18 runs;
 18. timing: each kernel's device time and its plain version's, last, so
     that the profiler's overhead cannot reach the runs before; K1 also at
     E=128 (the fixed cost of its 44 passes), at E=2000 and over 8
     problems of E=1024 in one launch, K2 also on one KITTI-shape image.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launch counts in the tracking slice, the mapping slice, the arena-full
-run, the relocalization run, the map-reuse run, the stereo run, the
-stereo run with loop closing, the full pipeline with loop closing, the
-constructed closure, the retrain run, the mono run and the exploration
-run (``launches``, ``mapping_launches``, ``full_launches``,
+launch counts in the tracking slice, the mapping slice, the distorted
+camera's run, the arena-full run, the relocalization run, the map-reuse
+run, the stereo run, the stereo run with loop closing, the full
+pipeline with loop closing, the constructed closure, the retrain run,
+the mono run and the exploration run (``launches``,
+``mapping_launches``, ``distorted_launches``, ``full_launches``,
 ``reloc_launches``, ``reuse_launches``, ``stereo_launches``,
 ``stereo_loop_launches``, ``loop_launches``, ``closure_launches``,
 ``retrain_launches``, ``mono_launches``, ``explore_launches``), its
@@ -149,6 +165,7 @@ and the extra timings with their bounds (K1 ``ms_p8`` /
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -159,6 +176,9 @@ import time
 import warnings
 
 import numpy as np
+
+import bench_torch
+from bench_torch import render_pairs, stereo_config
 
 ATE_BOUND_M = 0.010          # slice ATE against ground truth
 K1_POSE_ATOL = 1e-3          # kernel vs plain, every pose component
@@ -177,6 +197,21 @@ CARD_CPU_POINT_ATOL_M = 1e-3
 # points (depth far beyond their stereo baseline) by up to 1.4e-2 m, so
 # that check holds every point to this and the discrete results exactly
 CULL_EVENT_POINT_ATOL_M = 0.05
+# phase 5b, the distorted camera: TUM fr1's calibration and radtan
+# coefficients (tests/test_undistort.py:20-23), that test's two bars
+# (the rigid ATE, and the unmodelled run's ATE over twice it) and the
+# card against the CPU on the undistorted keypoints.  TUM fr1's
+# coefficients bend the frames less than the test's own profile (the
+# unmodelled run read 2.61 times the modelled one on an H100 at VGA,
+# 1.15-1.85 on the CPU at 320x240), so the bars are also held on the
+# test's profile, on the same intrinsics and frames
+TUM_FR1_CAM = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3, bf=40.0,
+                   width=640, height=480)
+TUM_FR1_DIST = (0.2624, -0.9531, -0.0054, 0.0026, 1.1633)
+E2E_TEST_DIST = (0.25, -0.3, 0.0, 0.0, 0.0)   # tests/test_undistort.py:132
+DISTORTED_ATE_BOUND_M = 0.06
+DISTORTED_UNMODELLED_GAIN = 2.0
+DISTORTED_UV_ATOL = 1e-4     # px
 FULL_MIN_CULLS = 5           # arena-full run: keyframes culled
 CREATE_MIN_POINTS = 256      # aligned keyframes: points created (cap 512)
 K1_BATCH = 8                 # relocalization candidates, one K1 launch
@@ -188,12 +223,11 @@ RELOC_CARD_CPU_ASSOC_AGREE = 0.99
 RELOC_CARD_CPU_POSE_ATOL = 1e-3
 RELOC_CARD_CPU_SEEDS = tuple(range(1, 9))
 N_STEREO = 30                # KITTI-shape pairs of phase 12 (of 150)
-N_STEREO_LOOP = 150          # bench.py::stereo_kitti_shape's whole circuit
+N_STEREO_LOOP = bench_torch.N_STEREO  # bench.py::stereo_kitti_shape's circuit
 N_STEREO_TIMED = 30          # its last pairs, timed
 # the circuit with loop closing: twice the JAX package's 0.183 m on it
 # (BENCH_r05.json, which closes no loop there)
 STEREO_LOOP_ATE_BOUND_M = 0.20
-STEREO_BASELINE_M = 0.12
 # twice the JAX package's ATE on these 30 pairs on the CPU, 0.00990 m
 # (tests/test_torch_stereo.py::test_stereo_kitti_shape_ate_beside_jax)
 STEREO_ATE_BOUND_M = 0.020
@@ -357,44 +391,22 @@ def vga_config(kind="tracking"):
     tracking window; ``mapping``: its full-pipeline window without loop
     closing (default arena); ``full``: an 8-keyframe arena with a
     keyframe at least every 2 frames."""
-    from active_orb_slam2_tpu_torch.config import (
-        MapConfig, OrbConfig, SlamConfig, TrackingConfig)
-    from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
-    cam = CameraParams(fx=525.0, fy=525.0, cx=319.5, cy=239.5, bf=40.0,
-                       width=640, height=480)
-    tracking, arena = {
-        "tracking": (TrackingConfig(th_depth=8.0),
-                     MapConfig(max_keyframes=64, max_points=16384,
-                               local_ba_keyframes=8, local_ba_points=2048)),
-        "mapping": (TrackingConfig(th_depth=8.0, kf_max_interval=8),
-                    MapConfig()),
-        "full": (TrackingConfig(th_depth=8.0, kf_max_interval=2),
-                 MapConfig(max_keyframes=8, max_points=16384,
-                           local_ba_keyframes=8, local_ba_points=2048)),
-    }[kind]
-    return SlamConfig(camera=cam, orb=OrbConfig(n_features=1024, n_levels=8),
-                      tracking=tracking, map=arena)
-
-
-def _render_orbit_frame(i):
-    """Frame i of the 42-frame VGA orbit (runs in a worker process)."""
-    from active_orb_slam2_tpu_torch.io.synthetic import (
-        default_world, orbit_trajectory, render_rgbd)
-    Twc = orbit_trajectory(N_FRAMES, step_deg=0.8)[i]
-    g, d = render_rgbd(default_world(), vga_config().camera, Twc)
-    return (np.clip(g, 0, 255).astype(np.uint8),
-            np.clip(d * 1e3, 0, 65535).astype(np.uint16))
+    from active_orb_slam2_tpu_torch.config import MapConfig, TrackingConfig
+    if kind == "tracking":
+        return bench_torch.tracking_config()
+    if kind == "mapping":
+        return bench_torch.full_pipeline_config()
+    return dataclasses.replace(
+        bench_torch.tracking_config(),
+        tracking=TrackingConfig(th_depth=8.0, kf_max_interval=2),
+        map=MapConfig(max_keyframes=8, max_points=16384,
+                      local_ba_keyframes=8, local_ba_points=2048))
 
 
 def render_frames():
     """``make_sequence``'s 42 noise-free frames of the 0.8-degree VGA
     orbit, rendered in a pool of fresh processes, and the true centres."""
-    from active_orb_slam2_tpu_torch.io.synthetic import orbit_trajectory
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
-        frames = pool.map(_render_orbit_frame, range(N_FRAMES))
-    return frames, np.stack([T[:3, 3].astype(np.float64) for T in
-                             orbit_trajectory(N_FRAMES, step_deg=0.8)])
+    return bench_torch.render_orbit(N_FRAMES)
 
 
 def k1_problem(rng, cam, E, device, kind="noisy"):
@@ -744,22 +756,14 @@ def count_host_syncs(slam, frames, track="track_rgbd"):
 
 
 def phase_slice(device, cfg, frames, gt):
-    import torch
+    """The tracking slice, timed by ``bench_torch.tracking_window``."""
     from active_orb_slam2_tpu_torch.io.trajectory import camera_centers
     from active_orb_slam2_tpu_torch.models.system import OK, System
     from active_orb_slam2_tpu_torch.utils.evaluate import umeyama_alignment
 
-    slam = System(cfg, use_mapping=False, device=device)
     reset_launches()
-    for i, (g, d) in enumerate(frames):
-        if i == WARMUP:
-            slam.flush()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        slam.track_rgbd(g, d, i / 30.0)
-    slam.flush()
-    torch.cuda.synchronize()
-    ms_frame = (time.perf_counter() - t0) / (N_FRAMES - WARMUP) * 1e3
+    ms_frame, window_ms, slam = bench_torch.tracking_window(frames, cfg,
+                                                            device)
     launches = kernel_launches()
     n_sync_warnings, _ = count_host_syncs(
         System(cfg, use_mapping=False, device=device), frames)
@@ -777,8 +781,9 @@ def phase_slice(device, cfg, frames, gt):
     log(f"slice: inliers first {inliers[0]} min {min(inliers)} "
         f"final {inliers[-1]}")
     log(f"slice: {ms_frame:.3f} ms/frame over frames {WARMUP}-{N_FRAMES - 1} "
-        f"(host clock, synchronized), ATE {ate:.5f} m, "
-        f"sync warnings in steady state {n_sync_warnings}")
+        f"(host clock, with the final drain; windows "
+        f"{', '.join(f'{w:.3f}' for w in window_ms)} ms/frame), ATE "
+        f"{ate:.5f} m, sync warnings in steady state {n_sync_warnings}")
     log(f"slice: launches {launches}")
     tracked = N_FRAMES - 1
     if len(states) != tracked or any(s != OK for s in states) \
@@ -941,29 +946,137 @@ def card_vs_cpu(cfg, base, k, seq, what, point_atol=CARD_CPU_POINT_ATOL_M):
 
 def phase_mapping_step(slam):
     """The card-vs-CPU check on the final arena of the mapping slice, then
-    the call's time on the card (median of 5 calls, each on a fresh copy
-    of the arena, synchronized)."""
-    import torch
-    from active_orb_slam2_tpu_torch.models.local_mapping import (
-        build_keyframe_mapping)
+    the call's time on the card (``bench_torch.mapping_timing``: median
+    of 5 calls, each on a fresh copy of the arena, synchronized)."""
     from active_orb_slam2_tpu_torch.models.map_state import MapState
-    cfg = slam.cfg
     base = MapState(*[t.clone() for t in slam.map])
-    k, seq = slam.last_kf_slot, slam.kf_seq
-    card_vs_cpu(cfg, base, k, seq, "mapping step, final arena")
-    step = build_keyframe_mapping(cfg)
-    times = []
-    for _ in range(5):
-        m = MapState(*[t.clone() for t in base])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(m, k, seq)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    ms = float(np.median(times))
+    card_vs_cpu(slam.cfg, base, slam.last_kf_slot, slam.kf_seq,
+                "mapping step, final arena")
+    ms = bench_torch.mapping_timing(slam)
     log(f"mapping step: {ms:.2f} ms per call on the card (median of 5, "
         f"synchronized)")
     return ms
+
+
+def tum_fr1_config(dist=TUM_FR1_DIST):
+    """The mapping slice's configuration with TUM fr1's intrinsics and
+    the radtan coefficients ``dist`` with the undistorted image bounds
+    (``compute_image_bounds``, as ``tests/test_undistort.py`` applies
+    them); ``dist`` None leaves the distortion unmodelled."""
+    from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
+    from active_orb_slam2_tpu_torch.ops.undistort import compute_image_bounds
+    cam = CameraParams(**TUM_FR1_CAM)
+    if dist is None:
+        return dataclasses.replace(vga_config("mapping"), camera=cam)
+    x0, x1, y0, y1 = compute_image_bounds(cam, dist)
+    return dataclasses.replace(
+        vga_config("mapping"), distortion=dist,
+        camera=cam._replace(min_x=x0, max_x=x1, min_y=y0, max_y=y1))
+
+
+def _render_distorted_frame(i):
+    """Frame i of the 42-frame orbit seen by an ideal camera with TUM fr1's
+    intrinsics, gray and depth warped as ``tests/test_undistort.py``
+    warps them, into TUM fr1's distorted camera and into the test's
+    (runs in a worker process)."""
+    from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
+    from active_orb_slam2_tpu_torch.io.synthetic import (
+        default_world, orbit_trajectory, render_rgbd)
+    from active_orb_slam2_tpu_torch.ops.undistort import distort_warp_image
+    cam = CameraParams(**TUM_FR1_CAM)
+    Twc = orbit_trajectory(N_FRAMES, step_deg=bench_torch.ORBIT_STEP_DEG)[i]
+    g, d = render_rgbd(default_world(), cam, Twc)
+    return tuple((np.clip(distort_warp_image(cam, dist, g), 0,
+                          255).astype(np.uint8),
+                  np.clip(distort_warp_image(cam, dist, d) * 1e3, 0,
+                          65535).astype(np.uint16))
+                 for dist in (TUM_FR1_DIST, E2E_TEST_DIST))
+
+
+def render_distorted_frames():
+    """The 42 frames in TUM fr1's distorted camera and in the test's,
+    rendered and warped in a pool of fresh processes (the true centres
+    are the orbit's)."""
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
+        both = pool.map(_render_distorted_frame, range(N_FRAMES))
+    return [f for f, _ in both], [f for _, f in both]
+
+
+def phase_distorted(device, frames, test_frames, gt):
+    """The mapping slice through TUM fr1's distorted camera: a timed run
+    (launch counts, peak memory, ATE), a second run with host syncs
+    counted, a run with the distortion left unmodelled, the undistorted
+    keypoints of frame 0 on the card against the CPU (the card's
+    detections, undistorted on both); then the test's radtan profile
+    modelled and unmodelled on ``test_frames``.  Each profile's
+    unmodelled run must read more than twice its modelled ATE."""
+    import torch
+    from active_orb_slam2_tpu_torch.models.system import System
+    from active_orb_slam2_tpu_torch.ops.orb import build_extractor
+    from active_orb_slam2_tpu_torch.ops.undistort import undistort_points
+
+    def ate_of(cfg, frames):
+        slam = System(cfg, device=device)
+        run_frames(slam, frames)
+        return trajectory_ate(slam, gt), \
+            sorted(set(m["state"] for m in slam.metrics))
+
+    cfg = tum_fr1_config()
+    slam = System(cfg, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms_frame, calls = run_frames(slam, frames, timed=True)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ate = trajectory_ate(slam, gt)
+    n_sync, where = count_host_syncs(System(cfg, device=device), frames)
+    tum_off = ate_of(tum_fr1_config(None), frames)
+    test_on = ate_of(tum_fr1_config(E2E_TEST_DIST), test_frames)
+    test_off = ate_of(tum_fr1_config(None), test_frames)
+    cam = cfg.camera
+    feats = build_extractor(cfg.orb, cam.height, cam.width)(
+        torch.from_numpy(frames[0][0]).to(device).to(torch.float32))
+    und = undistort_points(cam, TUM_FR1_DIST, feats.uv).cpu()
+    und_cpu = undistort_points(cam, TUM_FR1_DIST, feats.uv.cpu())
+    valid = feats.valid.cpu()
+    uv_err = float((und - und_cpu)[valid].abs().max())
+    log(f"distorted camera (TUM fr1): {len(slam.metrics)} tracked frames, "
+        f"keyframes {slam.kf_seq}, keyframe events {len(calls)}, bounds "
+        f"{tuple(round(b, 3) for b in cam.bounds())}, rigid ATE {ate:.5f} m;"
+        f" unmodelled {tum_off[0]:.5f} m (states {tum_off[1]}); the test's "
+        f"profile {E2E_TEST_DIST}: modelled {test_on[0]:.5f} m (states "
+        f"{test_on[1]}), unmodelled {test_off[0]:.5f} m (states "
+        f"{test_off[1]})")
+    log(f"distorted camera: {ms_frame:.3f} ms/frame over frames "
+        f"{WARMUP}-{N_FRAMES - 1} (host clock, synchronized), peak device "
+        f"memory {peak / 2**20:.1f} MiB, sync warnings in steady state "
+        f"{n_sync} {where}, launches {launches}; undistorted keypoints of "
+        f"frame 0, card vs CPU: {int(valid.sum())} valid, max |uv| diff "
+        f"{uv_err:.3e} px")
+    check_all_ok(slam, "distorted camera")
+    if launches != {"pose_opt": 2 * (N_FRAMES - 1), "keypoints": N_FRAMES}:
+        raise RuntimeError(f"distorted camera: launches {launches}")
+    for what, on, off in (("TUM fr1", ate, tum_off[0]),
+                          ("the test's profile", test_on[0], test_off[0])):
+        if not on <= DISTORTED_ATE_BOUND_M:
+            raise RuntimeError(f"distorted camera, {what}: ATE {on:.5f} m "
+                               f"above {DISTORTED_ATE_BOUND_M} m")
+        if not off > DISTORTED_UNMODELLED_GAIN * on:
+            raise RuntimeError(f"distorted camera, {what}: the unmodelled "
+                               f"run's ATE {off:.5f} m is not above "
+                               f"{DISTORTED_UNMODELLED_GAIN} x {on:.5f} m")
+    if n_sync:
+        raise RuntimeError(f"distorted camera: {n_sync} synchronizing calls "
+                           f"in the steady state: {where}")
+    if peak > LOOP_PEAK_BYTES:
+        raise RuntimeError(f"distorted camera: peak memory "
+                           f"{peak / 2**20:.1f} MiB above 1 GiB")
+    if not uv_err <= DISTORTED_UV_ATOL:
+        raise RuntimeError(f"distorted camera: undistorted keypoints differ "
+                           f"by {uv_err:.3e} px between card and CPU")
+    return launches
 
 
 def aligned_map(cfg, seed):
@@ -1274,49 +1387,6 @@ def phase_reloc_card_vs_cpu(slam, frames):
     if bad:
         raise RuntimeError(f"relocalizer: card and CPU disagree for noise "
                            f"seeds {bad}")
-
-
-def stereo_config():
-    """``bench.py::stereo_kitti_shape``: 1226x370, f=707, baseline 0.12 m,
-    2000 features, 8 levels, ThDepth 35 baselines, a keyframe at least
-    every 8 frames, the default arena."""
-    from active_orb_slam2_tpu_torch.config import (
-        MapConfig, OrbConfig, SlamConfig, TrackingConfig)
-    from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
-    w, h, f = 1226, 370, 707.0
-    cam = CameraParams(fx=f, fy=f, cx=(w - 1) / 2.0, cy=(h - 1) / 2.0,
-                       bf=f * STEREO_BASELINE_M, width=w, height=h)
-    return SlamConfig(camera=cam, orb=OrbConfig(n_features=2000, n_levels=8),
-                      tracking=TrackingConfig(th_depth=35.0 * STEREO_BASELINE_M,
-                                              kf_max_interval=8),
-                      map=MapConfig())
-
-
-def _render_pair(i):
-    """Pair i of the KITTI-shape circuit (runs in a worker process): the
-    right eye is the left pose moved by the baseline along its x axis;
-    one ray a pixel."""
-    from active_orb_slam2_tpu_torch.io.synthetic import (
-        default_world, loop_trajectory, render_rgbd)
-    Twc = loop_trajectory(N_STEREO_LOOP, radius=2.5)[i]
-    right = Twc.copy()
-    right[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array(
-        [STEREO_BASELINE_M, 0.0, 0.0], np.float32)
-    cam = stereo_config().camera
-    return tuple(np.clip(render_rgbd(default_world(n_boxes=0), cam, T,
-                                     supersample=1)[0], 0,
-                         255).astype(np.uint8) for T in (Twc, right))
-
-
-def render_pairs():
-    """The 150 pairs of ``bench.py``'s circuit (no boxes, radius 2.5 m),
-    rendered in a pool of fresh processes, and the true centres."""
-    from active_orb_slam2_tpu_torch.io.synthetic import loop_trajectory
-    ctx = multiprocessing.get_context("spawn")
-    with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
-        pairs = pool.map(_render_pair, range(N_STEREO_LOOP))
-    return pairs, np.stack([T[:3, 3].astype(np.float64) for T in
-                            loop_trajectory(N_STEREO_LOOP, radius=2.5)])
 
 
 def phase_stereo(device, pairs, gt):
@@ -2791,6 +2861,18 @@ def phase_sharded_gba(device, size=SHARDED):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_op_floor(device):
+    """``bench_torch.ba_op_floor_evidence`` once, before the profiler of
+    phase 18 can slow it: the chained matvec's ms a link, the float32
+    matmul's TFLOP/s, ``global_ba``'s marginal ms and ops per CG step."""
+    t0 = time.perf_counter()
+    ev = bench_torch.ba_op_floor_evidence(device)
+    log(f"op floor: {ev}; phase {time.perf_counter() - t0:.1f} s")
+    if not all(np.isfinite(v) and v > 0 for v in ev.values()):
+        raise RuntimeError(f"op floor: {ev}")
+    return ev
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2825,6 +2907,10 @@ def main():
     log(f"rendered {N_FRAMES} VGA frames in {time.perf_counter() - t0:.1f} s "
         f"(process pool)")
     t0 = time.perf_counter()
+    distorted, test_distorted = render_distorted_frames()
+    log(f"rendered and warped {N_FRAMES} distorted VGA frames in "
+        f"{time.perf_counter() - t0:.1f} s (process pool)")
+    t0 = time.perf_counter()
     loop_frames, loop_traj = render_loop_frames()
     log(f"rendered {N_LOOP} VGA frames of the loop circle in "
         f"{time.perf_counter() - t0:.1f} s (process pool)")
@@ -2855,6 +2941,9 @@ def main():
         path = os.path.join(tmp, "map.npz")
         map_slam.save_map(path)
         del map_slam
+        runs["distorted_launches"] = phase_distorted(
+            device, distorted, test_distorted, gt)
+        del distorted, test_distorted
         runs["full_launches"] = phase_arena_full(device, frames, gt)
         phase_create_points(device)
         runs["reloc_launches"] = phase_relocalization(device, frames, gt)
@@ -2880,6 +2969,7 @@ def main():
     runs["explore_launches"] = phase_explore(device, arena)
     del arena
     phase_sharded_gba(device)
+    phase_op_floor(device)
     times = phase_timing(checks)
 
     kernels = [

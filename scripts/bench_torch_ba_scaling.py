@@ -82,6 +82,19 @@ def build_problem(K=48, Pn=8192, O=8, seed=0, device="cpu"):
             edges, torch.arange(K, device=device) == 0)
 
 
+def ba_flops_per_iter(K=48, Pn=8192, O=8):
+    """``scripts/bench_ba_scaling.py::ba_flops_per_iter`` (:58): the
+    analytic FLOP of one LM iteration's dominant terms, residuals and
+    Jacobians, the A / Hcc / Hpp products, the Schur complement and the
+    reduced solve, twice for the chi2 re-evaluation pass but the solve."""
+    E = Pn * O
+    lin = E * 400
+    blocks = E * (6 * 3 * 3 * 2 + 6 * 6 * 3 * 2 + 3 * 3 * 3 * 2)
+    schur = Pn * O * O * 6 * 3 * 6 * 2 + Pn * O * 6 * 3 * 2
+    solve = (K * 6) ** 3 * 2 // 3
+    return 2 * (lin + blocks + schur) + solve
+
+
 def fitted_poses(poses):
     """The poses the observations fit, with camera 0 where it is fixed:
     the observations take the stored translation c_k as a camera center,

@@ -72,16 +72,18 @@ def test_slice_ate_matches_jax_30_frames():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py and the port's endurance
-    and long-sequence scripts import without JAX."""
+    """Every module of the port, chip_smoke.py, bench_torch.py and the
+    port's endurance, long-sequence and tracking-profile scripts import
+    without JAX."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import active_orb_slam2_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, bench_torch\n"
         "sys.path.insert(0, 'scripts')\n"
         "import run_torch_endurance, run_torch_long_sequence\n"
+        "import profile_torch_track\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib', 'active_orb_slam2_tpu.'))\n"
         "             or m == 'active_orb_slam2_tpu')\n"
