@@ -34,9 +34,11 @@ still holds the loop keyframe (the JAX package checks slot liveness,
 ``loop_closing.py:790``, and not at all, ``:692``/``:723``); the fuse
 writes only active lanes, where the JAX package's masked lanes write
 feature 0 of each target back to its old value (item g); a rejected
-correction is kept in ``last_rejection`` rather than written to a file;
-trained vocabularies are cached under a digest of the whole corpus,
-where the JAX package's key (its size and first 16 descriptors) hands
+correction is kept in ``last_rejection``, and written to a file (the JAX
+package's dump, plus the covisibility matrix the gate was given) only
+where the caller names one (``dump_path``), never to ``/tmp``; trained
+vocabularies are cached under a digest of the whole corpus, where the
+JAX package's key (its size and first 16 descriptors) hands
 one map's vocabulary to another map of the process whose first
 keyframe and corpus size are the same.
 """
@@ -55,6 +57,7 @@ from active_orb_slam2_tpu_torch.geometry.projection import project_stereo
 from active_orb_slam2_tpu_torch.geometry.se3 import (
     quat_conj, quat_rotate, se3_apply, sim3_apply, sim3_compose,
     sim3_from_se3, sim3_inverse, sim3_to_se3)
+from active_orb_slam2_tpu_torch.models.convert import map_to_jax_numpy
 from active_orb_slam2_tpu_torch.models.local_mapping import (
     last_lane_put, masked_put, write_back)
 from active_orb_slam2_tpu_torch.models.map_state import (
@@ -109,8 +112,11 @@ class LoopCloser:
                  min_total_matches: int = MIN_TOTAL_MATCHES,
                  gba_iters: int = GBA_ITERS, gba_cg_iters: int = GBA_CG_ITERS,
                  recent_frames_guard: int = 30,
-                 vocab_path: Optional[str] = None, vocab_grow: bool = True):
+                 vocab_path: Optional[str] = None, vocab_grow: bool = True,
+                 dump_path: Optional[str] = None):
         self.cfg = cfg
+        # a rejected correction's inputs go to this file (dump_correction)
+        self.dump_path = dump_path
         # each knob is read where it is used, so it may be changed after
         # construction (the endurance script sets gba_iters)
         self.consistency_th = consistency_th
@@ -393,6 +399,22 @@ class LoopCloser:
             li[n], lj[n] = a, b
         return li, lj, len(window) - 1
 
+    def _loop_edge(self, cur_kf: int, loop_kf: int):
+        """The ``loop_edges`` entry of a closure of cur_kf on loop_kf."""
+        sf = self._slot_fid
+        return (int(loop_kf), int(cur_kf), sf.get(int(loop_kf)),
+                sf.get(int(cur_kf)))
+
+    def next_loop_window(self, cur_kf: int, loop_kf: int,
+                         max_loop: int = MAX_LOOP_EDGES):
+        """The (li, lj, new_n) that ``correct(m, cur_kf, loop_kf, ...)``
+        will hand the essential graph; changes nothing."""
+        self.loop_edges.append(self._loop_edge(cur_kf, loop_kf))
+        try:
+            return self._loop_window(max_loop)
+        finally:
+            self.loop_edges.pop()
+
     def correct(self, m: MapState, cur_kf: int, loop_kf: int, s_cm, W=None,
                 max_loop: int = MAX_LOOP_EDGES):
         """The prompt part of CorrectLoop on a copy of the map (Sim3
@@ -406,9 +428,8 @@ class LoopCloser:
         if W is None:
             W = covisibility_weights(m)
         sf = self._slot_fid
-        self.loop_edges.append((int(loop_kf), int(cur_kf),
-                                sf.get(int(loop_kf)), sf.get(int(cur_kf))))
-        li, lj, new_n = self._loop_window(max_loop)
+        li, lj, new_n = self.next_loop_window(cur_kf, loop_kf, max_loop)
+        self.loop_edges.append(self._loop_edge(cur_kf, loop_kf))
         li_d, lj_d = upload(m.kf_pose.device, li, lj)
         m_new, diag_d = _correct_prompt(self.cfg, m, int(cur_kf), int(loop_kf),
                                         s_cm, W, li_d, lj_d, new_n, max_loop)
@@ -428,6 +449,9 @@ class LoopCloser:
                   f"{pre_chi2:.2f}->{post_chi2:.2f} med_disp={med_disp:.3f})",
                   file=sys.stderr)
             self.last_rejection = diag
+            if self.dump_path is not None:
+                dump_correction(self.dump_path, m, cur_kf, loop_kf, s_cm, li,
+                                lj, new_n, W)
             self.loop_edges.pop()
             self.n_rejected += 1
             return m, False
@@ -568,6 +592,23 @@ def warm_up(cfg: SlamConfig, device):
                          valid=edge == 0, weight=ones[:1]),
         torch.arange(2, device=device) == 0, iters=1)
     synchronize(device)
+
+
+def dump_correction(path, m: MapState, cur_kf: int, loop_kf: int, s_cm, li,
+                    lj, new_n: int, W):
+    """Write a correction's inputs to ``path`` (``np.savez_compressed``)
+    under the keys of the JAX package's rejected-correction dump (every
+    ``MapState`` field with the JAX package's dtypes, ``s_cm``,
+    ``cur_kf``, ``loop_kf``, ``li``, ``lj``, ``new_n``), plus ``W``, the
+    covisibility matrix the correction was given.
+    ``scripts/dissect_torch_closure.py`` replays it stage by stage, and
+    so does the JAX package's ``scripts/dissect_closure.py``."""
+    def host(a):
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+            else np.asarray(a)
+    np.savez_compressed(path, s_cm=host(s_cm), cur_kf=int(cur_kf),
+                        loop_kf=int(loop_kf), li=host(li), lj=host(lj),
+                        new_n=int(new_n), W=host(W), **map_to_jax_numpy(m))
 
 
 # ------------------------------------------------------------ device stages

@@ -91,7 +91,14 @@ Phases (each raises, and so exits nonzero, on failure):
     bars, the loop closer launches neither kernel, its verifications,
     correction and a GBA slice are timed; then the card against the CPU
     on that arena: ``compute_sim3`` with the same noise, ``correct`` with
-    the same Sim3 and one ``gba_slice``;
+    the same Sim3 and one ``gba_slice``; that correction recorded on each
+    device (``dump_correction``) and replayed by
+    ``scripts/dissect_torch_closure.py``'s ``dissect`` at the gate's 16 CG
+    steps: the CPU's replay equals its gate's chi2 before and after bit for
+    bit, the card's its gate's chi2 before bit for bit and after within
+    1e-3 relative (the card's global BA sums by atomics), each with its
+    gate's verdict; card and CPU stages within 1e-3 relative, the replay's
+    ms on the card logged;
 14b. the long-run retrain: ``scripts/run_torch_endurance.py``'s tour
     (320x240, 1024 features, default arena, loop closing on; its 1,000
     unique poses rendered in its process pool) until 8 keyframe events
@@ -251,6 +258,7 @@ LC_CARD_CPU_MATCHES = 2      # compute_sim3: |guided matches| difference
 LC_CARD_CPU_SIM3_ATOL = 1e-3
 LC_CARD_CPU_POSE_ATOL = 1e-3
 LC_CARD_CPU_POINT_ATOL_M = 0.05
+REPLAY_CARD_CPU_RTOL = 1e-3  # replayed chi2s: card vs CPU, card vs its gate
 N_MONO = 60                  # frames of tests/test_e2e_mono.py's orbit at VGA
 MONO_ATE_BOUND_M = 0.05      # tests/test_e2e_mono.py's bound (Sim3)
 MONO_MIN_POINTS = 100
@@ -2014,12 +2022,42 @@ def close_loop(lc, m, Ka, Kb):
     return m, events, None, None
 
 
+def replay_at_gate(dev, dump, cam):
+    """``scripts/dissect_torch_closure.py``'s replay of ``dump`` on
+    ``dev`` at the gate's 16 CG steps."""
+    from scripts.dissect_torch_closure import dissect
+    return dissect(dump, cam, dev, gba_iters=1, cg_iters=16,
+                   log=lambda *a: None)
+
+
+def check_replay(side, r, gate, accepted, post_rtol=0.0):
+    """The replay's chi2 before equals the gate's (``last_closure``) bit
+    for bit, its chi2 after is within ``post_rtol`` relative of the
+    gate's (bit for bit at 0), and its verdict is the gate's."""
+    post_rel = abs(r["post_gba"][0] - gate["chi2_post"]) / max(
+        abs(gate["chi2_post"]), 1e-12)
+    if r["pre"] != gate["chi2_pre"] or r["accepted"] != accepted \
+            or post_rel > post_rtol:
+        raise RuntimeError(
+            f"closure replay ({side}): chi2 {r['pre']!r} -> "
+            f"{r['post_gba'][0]!r} {r['accepted']}, the gate's "
+            f"{gate['chi2_pre']!r} -> {gate['chi2_post']!r} {accepted}")
+    return post_rel
+
+
 def phase_closure(device, frames, traj):
     """The constructed closure at VGA width, then the loop closer's card
-    against CPU checks on its arena."""
+    against CPU checks on its arena, and its corrections recorded and
+    replayed stage by stage."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _phase_closure(device, frames, traj, tmp)
+
+
+def _phase_closure(device, frames, traj, tmp):
     import torch
     from active_orb_slam2_tpu_torch.models import convert
-    from active_orb_slam2_tpu_torch.models.loop_closing import LoopCloser
+    from active_orb_slam2_tpu_torch.models.loop_closing import (
+        LoopCloser, dump_correction)
     from active_orb_slam2_tpu_torch.models.map_state import (
         MapState, covisibility_weights)
     from active_orb_slam2_tpu_torch.models.sim3_solver import (
@@ -2081,6 +2119,11 @@ def phase_closure(device, frames, traj):
         side_lc = LoopCloser(cfg, recent_frames_guard=0)
         side_lc._noise = lambda h, n, d: noise.to(d)
         ok, s, nm = side_lc.compute_sim3(base, *pair)
+        dump = os.path.join(tmp, f"closure_{side}.npz")
+        t0 = time.perf_counter()
+        dump_correction(dump, base, *pair, s_cm,
+                        *side_lc.next_loop_window(*pair), W)
+        dump_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         base, accepted = side_lc.correct(base, *pair, s_cm.to(dev), W=W)
         if dev.type == "cuda":
@@ -2088,7 +2131,9 @@ def phase_closure(device, frames, traj):
         correct_s = time.perf_counter() - t0
         out[side] = {"ok": ok, "s": None if s is None else s.cpu(), "n": nm,
                      "accepted": accepted, "map": MapState(*[
-                         x.cpu() for x in base]), "s_correct": correct_s}
+                         x.cpu() for x in base]), "s_correct": correct_s,
+                     "dump": dump, "s_dump": dump_s,
+                     "gate": side_lc.last_closure}
     card, cpu = out["card"], out["cpu"]
     s_err = float((card["s"] - cpu["s"]).abs().max()) \
         if card["ok"] and cpu["ok"] else 0.0
@@ -2122,7 +2167,42 @@ def phase_closure(device, frames, traj):
         raise RuntimeError("closure: correct card and CPU disagree")
     if gba_err > LC_CARD_CPU_POSE_ATOL:
         raise RuntimeError("closure: gba_slice card and CPU disagree")
+    closure_replays(device, cfg.camera, out)
     return launches
+
+
+def closure_replays(device, cam, out):
+    """The closing correction's records (``out[side]["dump"]``) replayed
+    on their own device, each against that device's gate: on the CPU bit
+    for bit; on the card, whose gate sums its global BA by atomics, the
+    chi2 before bit for bit and after within ``REPLAY_CARD_CPU_RTOL``.
+    Card against CPU on every stage."""
+    import torch
+    t0 = time.perf_counter()
+    rep = {side: replay_at_gate(dev, out[side]["dump"], cam)
+           for side, dev in (("card", device), ("cpu", torch.device("cpu")))}
+    check_replay("cpu", rep["cpu"], out["cpu"]["gate"], out["cpu"]["accepted"])
+    card_post = check_replay("card", rep["card"], out["card"]["gate"],
+                             out["card"]["accepted"], REPLAY_CARD_CPU_RTOL)
+    stages = [(k, rep["card"][k], rep["cpu"][k])
+              for k in ("pre", "post_stage1", "post_pg")]
+    stages.append(("post_gba1", rep["card"]["post_gba"][0],
+                   rep["cpu"]["post_gba"][0]))
+    rel = {k: abs(a - b) / max(abs(b), 1e-12) for k, a, b in stages}
+    card, cpu = rep["card"], rep["cpu"]
+    log(f"closure replay (dissect_torch_closure, 1 GBA iteration of 16 CG "
+        f"steps): CPU = its gate bit for bit ({cpu['pre']!r} -> "
+        f"{cpu['post_gba'][0]!r}, accepted); card: chi2 before = its gate "
+        f"bit for bit, after {card['post_gba'][0]!r} against the gate's "
+        f"{out['card']['gate']['chi2_post']!r} (relative {card_post:.3g}), "
+        f"accepted; stages card vs CPU relative {rel}; replay "
+        f"{card['ms']:.1f} ms on the card, {cpu['ms']:.0f} ms on the CPU")
+    if max(rel.values()) > REPLAY_CARD_CPU_RTOL:
+        raise RuntimeError(f"closure replay: card and CPU stages disagree "
+                           f"{rel}")
+    log(f"closure records: written in {out['card']['s_dump']:.2f} s (card) "
+        f"+ {out['cpu']['s_dump']:.2f} s (CPU), replayed in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _render_mono_frame(i):

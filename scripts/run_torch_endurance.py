@@ -10,6 +10,7 @@ pass rule.
       [--device cuda|cpu] [--out ENDURANCE_TORCH.json]
       [--timeline FILE.jsonl] [--profile-every 8]
       [--no-loop] [--gba-iters N] [--no-cull] [--no-fuse] [--no-local-ba]
+      [--dump-closures DIR]
 
 The camera drives a closed circuit of the synthetic box world, lap
 after lap: ``tour``, a room-covering Lissajous figure (arena growth,
@@ -21,6 +22,13 @@ Besides the JAX script's keys the record has the rigid ATE (RGB-D has
 no free scale), the device memory at each 250-frame checkpoint, the
 kernels' launches, the vocabulary trainings and the card's name and
 power limit.  It runs on the card unless ``--device cpu`` is given.
+
+``--dump-closures DIR`` records every loop correction's inputs, accepted
+or rejected, as ``DIR/closure_<n>_{accepted|rejected}.npz`` (the loop
+closer's ``dump_correction``; replay one with
+``scripts/dissect_torch_closure.py``) and lists them in the record with
+each closure's Sim3 against ground truth.  It changes no result; each
+correction then waits on the card once more, to copy the arena out.
 """
 import argparse
 import json
@@ -173,6 +181,39 @@ def sim3_check(lcd, traj, unique):
             "sim3_scale": round(float(s[7]), 5)}
 
 
+def record_closures(lc, out_dir):
+    """Wrap ``lc.correct`` (from outside) so that each call's inputs are
+    written to ``out_dir/closure_<n>_{accepted|rejected}.npz``: the arena
+    is copied to the host before the call (an accepted correction writes
+    it in place) and (li, lj, new_n) computed as the call will.  Returns
+    the list that receives a row per correction."""
+    from active_orb_slam2_tpu_torch.models.loop_closing import (
+        MAX_LOOP_EDGES, dump_correction)
+    from active_orb_slam2_tpu_torch.models.map_state import (
+        MapState, covisibility_weights)
+    os.makedirs(out_dir, exist_ok=True)
+    rows, run_correct = [], lc.correct
+
+    def correct(m, cur_kf, loop_kf, s_cm, W=None, max_loop=MAX_LOOP_EDGES):
+        before = MapState(*[x.to("cpu", copy=True) for x in m])
+        W_in = covisibility_weights(m) if W is None else W
+        li, lj, new_n = lc.next_loop_window(cur_kf, loop_kf, max_loop)
+        m, accepted = run_correct(m, cur_kf, loop_kf, s_cm, W=W,
+                                  max_loop=max_loop)
+        path = os.path.join(out_dir, f"closure_{len(rows)}_"
+                            f"{'accepted' if accepted else 'rejected'}.npz")
+        dump_correction(path, before, cur_kf, loop_kf, s_cm, li, lj, new_n,
+                        W_in.to("cpu"))
+        diag = lc.last_closure if accepted else lc.last_rejection
+        rows.append({"file": path, "accepted": accepted,
+                     **{k: v for k, v in diag.items() if k != "s_cm"},
+                     "s_cm": np.asarray(diag["s_cm"]).tolist()})
+        return m, accepted
+
+    lc.correct = correct
+    return rows
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=4000)
@@ -198,6 +239,8 @@ def parse_args(argv=None):
     ap.add_argument("--no-fuse", action="store_true")
     ap.add_argument("--no-local-ba", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dump-closures", default=None, metavar="DIR",
+                    help="record every loop correction's inputs in DIR")
     return ap.parse_args(argv)
 
 
@@ -228,6 +271,8 @@ def run(args, cache=None, log=None):
     lc = slam.loop_closer
     if args.gba_iters is not None and lc is not None:
         lc.gba_iters = args.gba_iters
+    closures = record_closures(lc, args.dump_closures) \
+        if args.dump_closures and lc is not None else None
     if args.no_cull or args.no_fuse or args.no_local_ba:
         slam.keyframe_mapping = build_keyframe_mapping(
             cfg, triangulate=True, fuse=not args.no_fuse,
@@ -402,6 +447,9 @@ def run(args, cache=None, log=None):
         "memory_checkpoints": checkpoints,
         "memory_flat_from_1000": mem_flat,
         "forced_evictions": slam.n_forced_culls,
+        **({} if closures is None else {"closure_dumps": [
+            {**row, **sim3_check(row, traj, args.unique)}
+            for row in closures]}),
         "ok": bool(lost_frames == 0
                    and (slam.n_loops_closed >= 1 or args.no_loop)
                    and ate < 0.15 and slam.kf_seq > 64),

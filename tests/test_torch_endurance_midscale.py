@@ -2,7 +2,21 @@
 laps of a 250-pose circle) through the full pipeline on the CPU, loop
 closing and culling on, at a 128-keyframe arena; the similarity-aligned
 ATE stays below 0.25 m and keyframe slots are recycled.  Slow, as the
-JAX package's is."""
+JAX package's is.
+
+The loop closer's candidates and verdicts over the same 500 frames, the
+JAX package beside the port (ROADMAP queue 3, item w), side by side in
+separate processes:
+
+    JAX_PLATFORMS=cpu python -m tests.test_torch_endurance_midscale \
+        --side jax|port|port-witness --json OUT.json
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -25,21 +39,33 @@ CAM = CameraParams(fx=260.0, fy=260.0, cx=159.5, cy=119.5, bf=20.8,
                    width=320, height=240)
 
 
-def test_midscale_endurance_two_laps():
-    unique, frames = 250, 500
+UNIQUE, FRAMES = 250, 500
+
+
+def midscale_cache():
+    """(gray, depth mm, true centre) of the circle's unique poses."""
     world = default_world(n_boxes=8)
-    traj = loop_trajectory(unique, radius=1.2)
     cache = []
-    for Twc in traj:
+    for Twc in loop_trajectory(UNIQUE, radius=1.2):
         g, d = render_rgbd(world, CAM, Twc)
         cache.append((np.clip(g, 0, 255).astype(np.uint8),
                       np.clip(d * 1e3, 0, 65535).astype(np.uint16),
                       Twc[:3, 3].copy()))
-    cfg = SlamConfig(
+    return cache
+
+
+def midscale_config():
+    return SlamConfig(
         camera=CAM, orb=OrbConfig(n_features=1024, n_levels=8),
         tracking=TrackingConfig(th_depth=8.0, kf_max_interval=8),
         map=MapConfig(max_keyframes=128, max_points=16384,
                       local_ba_keyframes=8, local_ba_points=2048))
+
+
+def test_midscale_endurance_two_laps():
+    unique, frames = UNIQUE, FRAMES
+    cache = midscale_cache()
+    cfg = midscale_config()
     slam = System(cfg, use_mapping=True, use_loop_closing=True, device="cpu")
     gt = []
     for i in range(frames):
@@ -58,3 +84,90 @@ def test_midscale_endurance_two_laps():
         f"mid-scale ATE {ate:.3f} m (loops={slam.n_loops_closed} "
         f"rejected={lc.n_rejected} kf={slam.kf_seq})")
     assert slam.kf_seq > 20
+
+
+class Progress(list):
+    """The frames, with a line on stderr every 50 taken."""
+
+    def __iter__(self):
+        t0 = time.perf_counter()
+        for i, f in enumerate(super().__iter__()):
+            if i % 50 == 0:
+                print(f"frame {i} at {time.perf_counter() - t0:.0f} s",
+                      file=sys.stderr, flush=True)
+            yield f
+
+
+def decisions(side: str):
+    """One side's loop-closer record over the 500 frames, each frame
+    retired before the next: every keyframe event, verification (pair
+    and verdict) and detection, as
+    ``tests/test_torch_loop_circle_decisions.py`` records them.
+    ``side``: ``jax``, ``port``, or ``port-witness`` (the port with the
+    JAX package's local-BA write-back, quirk g)."""
+    from scripts.trace_torch_loop_decisions import trace_port
+    from tests.test_torch_loop_circle_decisions import summary, trace_jax
+    from tests.test_torch_mapping import jax_write_back
+    cfg = midscale_config()
+    cache = midscale_cache()
+    frames = Progress([cache[i % UNIQUE][:2] for i in range(FRAMES)])
+    if side == "jax":
+        return summary(*trace_jax(frames, cfg))
+    if side == "port":
+        return summary(*trace_port(cfg, frames, torch.device("cpu")))
+    with jax_write_back():
+        return summary(*trace_port(cfg, frames, torch.device("cpu")))
+
+
+def counts(rec):
+    """(candidates verified, verifications failed, corrections rejected,
+    loops closed)."""
+    last = rec["events"][-1] if rec["events"] else {}
+    return (last.get("candidates", 0), last.get("verify_fail", 0),
+            last.get("rejected", 0), rec["loops_closed"])
+
+
+def test_midscale_loop_decisions_beside_jax():
+    """ROADMAP queue 3, item w: both packages' candidates and verdicts
+    over the 500 frames (measured on an 8-core CPU: the JAX package
+    verifies 35 candidates and 34 fail, the port 31 and 30, the port
+    with the JAX write-back 34 and 33; each closes one loop).  The false
+    candidates are the reference's as much as the port's, and the
+    counts part by the maps the detection is given, not by the
+    detection: every one of each side's loop detections, replayed
+    through the port's DetectLoop on the recorded covisibility weights,
+    scores and consistency buffer, gives the recorded decision.  Tens
+    of minutes: run the three sides as separate processes (module
+    docstring)."""
+    from tests import test_torch_loop_circle_decisions as lcd
+    sides = {s: decisions(s) for s in ("jax", "port", "port-witness")}
+    for s, rec in sides.items():
+        print(s, counts(rec), lcd.verdicts(rec), flush=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(lcd, "loop_config", midscale_config)
+        for rec in sides.values():
+            for recorded, replayed in lcd.detections_replay(rec):
+                assert replayed == recorded
+    jcand, jfail = counts(sides["jax"])[:2]
+    for s, rec in sides.items():
+        cand, fail, _, loops = counts(rec)
+        assert loops >= 1 and fail >= 0.8 * cand, (s, counts(rec))
+        assert abs(fail - jfail) <= 0.25 * jcand, (s, counts(rec))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--side", choices=("jax", "port", "port-witness"),
+                    required=True)
+    ap.add_argument("--json", required=True)
+    args = ap.parse_args()
+    torch.set_num_threads(int(os.environ.get("TRACE_THREADS", "2")))
+    rec = decisions(args.side)
+    with open(args.json, "w") as f:
+        json.dump(rec, f, indent=1)
+    print(args.side, counts(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

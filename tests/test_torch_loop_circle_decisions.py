@@ -40,10 +40,12 @@ from tests.test_torch_mapping import jax_write_back
 torch.set_num_threads(1)
 
 
-def jax_config():
+def jax_config(tc=None):
+    """The JAX package's copy of the port's configuration ``tc``
+    (default: ``loop_config()``)."""
     from active_orb_slam2_tpu import config as jcfg
     from active_orb_slam2_tpu.geometry.projection import CameraParams
-    tc = loop_config()
+    tc = tc or loop_config()
     c = tc.camera
     return jcfg.SlamConfig(
         camera=CameraParams(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy, bf=c.bf,
@@ -53,8 +55,9 @@ def jax_config():
         map=jcfg.MapConfig(**dataclasses.asdict(tc.map)))
 
 
-def trace_jax(frames):
-    """The JAX package's full pipeline over ``frames``, each frame retired
+def trace_jax(frames, tc=None):
+    """The JAX package's full pipeline over ``frames`` in the port's
+    configuration ``tc`` (default: ``loop_config()``), each frame retired
     before the next; (event rows, verification rows, detection rows,
     System).  The counts inside the jitted verification come out through
     ordered debug callbacks."""
@@ -62,7 +65,7 @@ def trace_jax(frames):
     from active_orb_slam2_tpu.models import loop_closing as jlcm
     from active_orb_slam2_tpu.models import sim3_solver as jsolver
     from active_orb_slam2_tpu.models import system as jsys
-    slam = jsys.System(jax_config(), use_loop_closing=True,
+    slam = jsys.System(jax_config(tc), use_loop_closing=True,
                        pipeline_depth=0, retire_batch=1)
     lc = slam.loop_closer
     events, verifs, detects = [], [], []

@@ -14,6 +14,7 @@ ROADMAP queue 3, item m.
 import contextlib
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -160,6 +161,62 @@ def jax_write_back():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tlm, "make_mapping_body", jax_write_back_body)
         yield
+
+
+class jax_frames:
+    """Records the frames (``FrameData``) a JAX ``System`` tracks: the
+    first frame's from its frame pipeline, every later one's from its
+    fused step.  ``port_pipeline()``: inside that ``with``, port
+    ``System``s take those frames, in order, in place of their own
+    frame pipeline's."""
+
+    def __init__(self, jslam):
+        self.frames = []
+        run_fused, make = jslam._fused_step, jslam.make_rgbd
+
+        def keep(frame):
+            if not isinstance(frame.uv, jax.core.Tracer):
+                self.frames.append(frame)
+
+        def packed(*a):
+            out = make.packed(*a)
+            keep(out[0])
+            return out
+
+        def fused_step(kind):
+            fn = run_fused(kind)
+
+            def call(*a):
+                out = fn(*a)
+                keep(out[0])
+                return out
+            return call
+
+        jslam.make_rgbd = type("make_rgbd", (), {"packed": staticmethod(
+            packed), "__call__": staticmethod(make)})()
+        jslam._fused_step = fused_step
+
+    def port_frame(self, i):
+        from active_orb_slam2_tpu_torch.models.frame import FrameData
+        return FrameData(*[convert.to_torch(np.asarray(x))
+                           for x in self.frames[i]])
+
+    @contextlib.contextmanager
+    def port_pipeline(self):
+        from active_orb_slam2_tpu_torch.models import frame as tframe
+        fed = iter(range(len(self.frames)))
+
+        def build(cfg):
+            _, make_mono = tframe.build_frame_pipeline(cfg)
+
+            def make_rgbd(gray, depth):
+                f = self.port_frame(next(fed))
+                return f, (f.valid & (f.depth > 0.1)).sum().to(torch.int32)
+            return make_rgbd, make_mono
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tsys, "build_frame_pipeline", build)
+            yield
 
 
 def test_jax_write_back_closes_ate_gap():

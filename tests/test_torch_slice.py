@@ -73,8 +73,8 @@ def test_slice_ate_matches_jax_30_frames():
 
 def test_port_imports_no_jax():
     """Every module of the port, chip_smoke.py, bench_torch.py and the
-    port's endurance, long-sequence and tracking-profile scripts import
-    without JAX."""
+    port's endurance, long-sequence, tracking-profile, closure-dissector
+    and determinism-trace scripts import without JAX."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import active_orb_slam2_tpu_torch as p\n"
@@ -83,7 +83,8 @@ def test_port_imports_no_jax():
         "import chip_smoke, bench_torch\n"
         "sys.path.insert(0, 'scripts')\n"
         "import run_torch_endurance, run_torch_long_sequence\n"
-        "import profile_torch_track\n"
+        "import profile_torch_track, dissect_torch_closure\n"
+        "import trace_torch_determinism\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib', 'active_orb_slam2_tpu.'))\n"
         "             or m == 'active_orb_slam2_tpu')\n"
