@@ -3,7 +3,12 @@
     python -m active_orb_slam2_tpu_torch.examples.run_tum_rgbd <sequence_dir>
         [--settings TUM1.yaml] [--traj CameraTrajectory.txt]
         [--kf-traj KeyFrameTrajectory.txt] [--max-frames N]
-        [--no-loop-closing] [--ate] [--metrics PATH] [--device cpu]
+        [--no-loop-closing] [--ate] [--metrics PATH] [--trace-out PATH]
+        [--device cpu]
+
+``--trace-out`` turns the tracer on (``utils/trace.py``) and writes the
+run's spans and counters as Chrome trace-event JSON, which Perfetto
+opens.
 """
 
 from active_orb_slam2_tpu_torch.examples._common import (
@@ -19,7 +24,12 @@ def main(argv=None):
     ap.add_argument("--ate", action="store_true",
                     help="evaluate ATE against groundtruth.txt")
     ap.add_argument("--metrics", default=None, help="JSONL metrics path")
+    ap.add_argument("--trace-out", default=None,
+                    help="Chrome trace-event JSON of the run's spans")
     args = ap.parse_args(argv)
+    if args.trace_out:
+        from active_orb_slam2_tpu_torch.utils import trace
+        trace.enable()
 
     from active_orb_slam2_tpu_torch.io.datasets import TumRgbdDataset
     from active_orb_slam2_tpu_torch.models.system import System
@@ -33,6 +43,9 @@ def main(argv=None):
     slam.save_keyframe_trajectory_tum(args.kf_traj)
     if args.metrics:
         slam.save_metrics(args.metrics)
+    if args.trace_out:
+        trace.disable()
+        trace.write_chrome(args.trace_out)
     report(slam, times)
     if args.ate:
         from active_orb_slam2_tpu_torch.utils.evaluate import (

@@ -13,9 +13,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 import types
 from pathlib import Path
+
+from active_orb_slam2_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -46,8 +47,8 @@ SIGNATURES = {
 }
 
 _lib = None
-# of the build this process made: "seconds" (wall clock of the parallel
-# nvcc runs), "paths", "ptxas" (the compilers' -v reports)
+# of the build this process made: "paths", "ptxas" (the compilers' -v
+# reports); its time is the tracer's ``setup.kernels`` span
 build_info = {}
 
 
@@ -73,13 +74,12 @@ def build() -> dict:
     source, all started together; returns {name: library path}."""
     paths = {name: library_path(name) for name in SIGNATURES}
     todo = {name: p for name, p in paths.items() if not p.exists()}
-    build_info.update(seconds=0.0, paths={k: str(v) for k, v in paths.items()},
+    build_info.update(paths={k: str(v) for k, v in paths.items()},
                       ptxas="(cached)")
     if not todo:
         return paths
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     procs = {}
     for name, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -96,23 +96,24 @@ def build() -> dict:
             reports.append(stderr)
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    build_info.update(seconds=time.perf_counter() - t0,
-                      ptxas="".join(reports))
+    build_info.update(ptxas="".join(reports))
     return paths
 
 
 def library():
-    """The C entry points of every kernel library, built on first call."""
+    """The C entry points of every kernel library, built and loaded on
+    first call (the ``setup.kernels`` span)."""
     global _lib
     if _lib is None:
         fns = {}
-        for name, path in build().items():
-            lib = ctypes.CDLL(str(path))
-            for fname, argtypes in SIGNATURES[name].items():
-                fn = getattr(lib, fname)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                fns[fname] = fn
+        with trace.span("setup.kernels"):
+            for name, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                for fname, argtypes in SIGNATURES[name].items():
+                    fn = getattr(lib, fname)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[fname] = fn
         _lib = types.SimpleNamespace(**fns)
     return _lib
 

@@ -13,6 +13,7 @@ import torch
 
 from active_orb_slam2_tpu_torch.kernels import build
 from active_orb_slam2_tpu_torch.ops.patches import PATCH
+from active_orb_slam2_tpu_torch.utils import trace
 
 MAX_LEVELS = 16
 
@@ -60,8 +61,5 @@ def keypoint_stage_cuda(levels, ys, xs, counts, pad: int, taps, gauss):
         taps.data_ptr(), gauss.data_ptr(), angle.data_ptr(), desc.data_ptr(),
         build.stream_ptr(dev))
     build.check(err, "aos2_keypoints")
-    keypoint_stage_cuda.launches += 1
+    trace.count("k2.launches")
     return angle, desc
-
-
-keypoint_stage_cuda.launches = 0

@@ -8,6 +8,7 @@ Its plain version is ``ops/pose_opt_kernel.py::pose_optimization_fused_torch``.
 import torch
 
 from active_orb_slam2_tpu_torch.kernels import build
+from active_orb_slam2_tpu_torch.utils import trace
 
 # one block of 256 threads per problem, up to 8 edges each
 # (csrc/pose_opt.cu)
@@ -59,8 +60,5 @@ def pose_opt_cuda(cam, pose0, pw, obs_uvr, level, has_stereo, valid, w_table,
         rounds, iters, out.data_ptr(), n_inliers.data_ptr(),
         inliers.data_ptr(), build.stream_ptr(dev))
     build.check(err, "aos2_pose_opt")
-    pose_opt_cuda.launches += 1
+    trace.count("k1.launches")
     return out, n_inliers, inliers
-
-
-pose_opt_cuda.launches = 0

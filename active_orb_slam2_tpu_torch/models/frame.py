@@ -17,6 +17,7 @@ from active_orb_slam2_tpu_torch.config import SlamConfig
 from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
 from active_orb_slam2_tpu_torch.ops.orb import OrbFeatures, build_extractor
 from active_orb_slam2_tpu_torch.ops.stereo import compute_stereo_matches
+from active_orb_slam2_tpu_torch.utils import trace
 
 
 class FrameData(NamedTuple):
@@ -85,18 +86,23 @@ def build_frame_pipeline(cfg: SlamConfig):
     dist = cfg.distortion
     extract = build_extractor(cfg.orb, cam.height, cam.width)
 
+    @trace.traced("frame")
     def make_rgbd(gray, depth_map):
         img = gray.to(torch.float32)
         depth = depth_map.to(torch.float32)
         if depth_map.dtype == torch.uint16:
             depth = depth * torch.tensor(1e-3, dtype=torch.float32)  # mm -> m
-        frame = frame_from_features(extract(img), cam, depth, dist)
-        n_depth = (frame.valid & (frame.depth > 0.1)).sum()
+        feats = extract(img)
+        with trace.span("frame.depth"):
+            frame = frame_from_features(feats, cam, depth, dist)
+            n_depth = (frame.valid & (frame.depth > 0.1)).sum()
         return frame, n_depth.to(torch.int32)
 
+    @trace.traced("frame")
     def make_mono(gray):
-        frame = frame_from_features(extract(gray.to(torch.float32)), cam,
-                                    None, dist)
+        feats = extract(gray.to(torch.float32))
+        with trace.span("frame.depth"):
+            frame = frame_from_features(feats, cam, None, dist)
         return frame, torch.zeros((), dtype=torch.int32, device=gray.device)
 
     return make_rgbd, make_mono
@@ -110,11 +116,14 @@ def build_stereo_pipeline(cfg: SlamConfig):
     cam = cfg.camera
     extract = build_extractor(cfg.orb, cam.height, cam.width)
 
+    @trace.traced("frame")
     def make_stereo(left, right):
         il = left.to(torch.float32)
         ir = right.to(torch.float32)
         fl = extract(il)
-        ur, depth = compute_stereo_matches(cam, fl, extract(ir), il, ir)
+        fr = extract(ir)
+        with trace.span("frame.stereo"):
+            ur, depth = compute_stereo_matches(cam, fl, fr, il, ir)
         frame = FrameData(
             uv=fl.uv, level=fl.level, angle=fl.angle, response=fl.response,
             desc=fl.desc, valid=fl.valid,

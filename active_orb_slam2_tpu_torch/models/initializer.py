@@ -38,6 +38,7 @@ from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
 from active_orb_slam2_tpu_torch.geometry.se3 import mat_to_quat
 from active_orb_slam2_tpu_torch.geometry.triangulation import triangulate_dlt
 from active_orb_slam2_tpu_torch.ops.topk import stable_topk
+from active_orb_slam2_tpu_torch.utils import trace
 
 SIGMA_PX = 1.0
 N_HYPOTHESES = 200
@@ -225,6 +226,7 @@ def _check_rt(R, t, x1, x2, valid, sigma2):
     return good, xw, cosp
 
 
+@trace.traced("setup.warm_up")
 def warm_up_solvers(device, n_hyp: int = N_HYPOTHESES):
     """Run the initializer's solvers once at its shapes (the batched and
     the single float64 9x9 ``eigh``, the batched and the single 3x3

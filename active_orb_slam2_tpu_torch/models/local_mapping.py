@@ -43,6 +43,7 @@ from active_orb_slam2_tpu_torch.models.optimizer import (
 from active_orb_slam2_tpu_torch.ops.matching import (
     hamming_matrix, match_mutual, search_by_projection)
 from active_orb_slam2_tpu_torch.ops.topk import stable_topk
+from active_orb_slam2_tpu_torch.utils import trace
 
 BIG_FID = 2 ** 30
 N_NEIGHBORS = 8          # covisible neighbours searched per keyframe
@@ -561,16 +562,21 @@ def build_keyframe_mapping(cfg: SlamConfig, triangulate: bool = True,
     cull_body = make_cull_body(cfg) if cull else None
 
     def keyframe_mapping(m: MapState, kf_slot, kf_seq):
-        W = covisibility_weights(m)
+        with trace.span("mapping.covis"):
+            W = covisibility_weights(m)
         new = m
         if create_body is not None:
-            new = create_body(new, kf_slot, kf_seq, W)
+            with trace.span("mapping.create_points"):
+                new = create_body(new, kf_slot, kf_seq, W)
         if fuse_body is not None:
-            new = fuse_body(new, kf_slot, W)
+            with trace.span("mapping.fuse"):
+                new = fuse_body(new, kf_slot, W)
         if map_body is not None:
-            new = map_body(new, kf_slot, kf_seq, W)
+            with trace.span("mapping.local_ba"):
+                new = map_body(new, kf_slot, kf_seq, W)
         if cull_body is not None:
-            new, victim = cull_body(new, kf_slot, W)
+            with trace.span("mapping.cull_kf"):
+                new, victim = cull_body(new, kf_slot, W)
         else:
             victim = torch.full((), -1, dtype=torch.int32,
                                 device=m.kf_pose.device)
@@ -579,6 +585,8 @@ def build_keyframe_mapping(cfg: SlamConfig, triangulate: bool = True,
         vpose = new.kf_pose[vc][0]
         vppose = new.kf_pose[torch.clamp(vparent, min=0).long()][0]
         write_back(m, new)
-        return m, victim, vparent[0], vpose, vppose, covisibility_weights(m)
+        with trace.span("mapping.covis"):
+            W_out = covisibility_weights(m)
+        return m, victim, vparent[0], vpose, vppose, W_out
 
     return keyframe_mapping

@@ -45,7 +45,6 @@ keyframe and corpus size are the same.
 
 import hashlib
 import sys
-import time
 from typing import Optional
 
 import numpy as np
@@ -77,6 +76,7 @@ from active_orb_slam2_tpu_torch.ops.matching import (
 from active_orb_slam2_tpu_torch.ops.topk import nanmedian, stable_topk
 from active_orb_slam2_tpu_torch.parallel.dist_ba import (
     build_point_major_edges, global_ba)
+from active_orb_slam2_tpu_torch.utils import trace
 from active_orb_slam2_tpu_torch.utils.transfer import (
     landed, synchronize, to_pinned, upload)
 
@@ -131,16 +131,14 @@ class LoopCloser:
         self.vocab = None
         self._vocab_stage = 0          # trainings of vocab_schedule done
         if vocab_path is not None:     # a loaded vocabulary is not retrained
-            self.vocab = load_text_vocabulary(vocab_path)
+            with trace.span("setup.vocabulary"):
+                self.vocab = load_text_vocabulary(vocab_path)
             self._vocab_stage = len(self.vocab_schedule)
         self.fix_scale = cfg.sensor in ("stereo", "rgbd")
         self.recent_frames_guard = recent_frames_guard
         self.n_rejected = 0            # corrections rejected by the gate
         self.n_candidates = 0          # consistent detections resolved
         self.n_verify_fail = 0         # ComputeSim3 failures
-        self.last_retrain_ms = 0.0
-        self.stage_ms = {}
-        self.profile = False
         self._gen = None               # Sim3 RANSAC random numbers
         self.reset_state()
 
@@ -168,7 +166,8 @@ class LoopCloser:
         """Train (and by the schedule retrain) the vocabulary once the map
         has enough live keyframes: the descriptors of every live keyframe
         are read to the host (a wait on the card), at most 20,000 of them
-        taken at a uniform stride.  A retrain drops the BoW cache."""
+        taken at a uniform stride.  A retrain drops the BoW cache.  The
+        whole of a training is the tracer's ``loop.retrain`` span."""
         if self._vocab_stage >= len(self.vocab_schedule):
             return self.vocab
         if n_kf is None:
@@ -176,18 +175,19 @@ class LoopCloser:
         thresh, k, depth = self.vocab_schedule[self._vocab_stage]
         if n_kf < thresh:
             return self.vocab
-        desc = m.kf_desc.cpu().numpy().view(np.uint32)
-        kfv = m.kf_valid.cpu().numpy()
-        fv = m.kf_feat_valid.cpu().numpy()
-        corpus = desc[kfv][fv[kfv]]
-        if corpus.shape[0] > CORPUS_MAX:
-            step = corpus.shape[0] / float(CORPUS_MAX)
-            corpus = corpus[(np.arange(CORPUS_MAX) * step).astype(np.int64)]
-        t0 = time.perf_counter()
-        self.vocab = train_vocab_cached(corpus, k, depth).to(m.kf_desc.device)
-        self.last_retrain_ms = (time.perf_counter() - t0) * 1e3
-        self._vocab_stage += 1
-        self._bow_fid = None
+        with trace.span("loop.retrain"):
+            desc = m.kf_desc.cpu().numpy().view(np.uint32)
+            kfv = m.kf_valid.cpu().numpy()
+            fv = m.kf_feat_valid.cpu().numpy()
+            corpus = desc[kfv][fv[kfv]]
+            if corpus.shape[0] > CORPUS_MAX:
+                step = corpus.shape[0] / float(CORPUS_MAX)
+                corpus = corpus[(np.arange(CORPUS_MAX) * step)
+                                .astype(np.int64)]
+            self.vocab = train_vocab_cached(corpus, k, depth).to(
+                m.kf_desc.device)
+            self._vocab_stage += 1
+            self._bow_fid = None
         return self.vocab
 
     def refresh_bows(self, m: MapState):
@@ -313,13 +313,8 @@ class LoopCloser:
         """Dispatch loop detection for ``cur_kf`` without reading it: the
         decision goes to pinned memory and is read at the next keyframe
         event.  Returns the pending record, or None."""
-        t_voc = time.perf_counter()
-        stage0 = self._vocab_stage
         if self.ensure_vocabulary(m, n_kf=n_live_kf) is None:
             return None
-        if self._vocab_stage != stage0:
-            # the whole setup: descriptor read, training, cache drop
-            self.last_retrain_ms = (time.perf_counter() - t_voc) * 1e3
         if W is None:
             W = covisibility_weights(m)
         self._ensure_buffer(m.max_keyframes, m.kf_valid.device)
@@ -532,42 +527,31 @@ class LoopCloser:
                     and pend["kf_seq"] - self.last_loop_kf_seq
                     >= LOOP_COOLDOWN):
                 self.n_candidates += 1
-                t0 = time.perf_counter()
-                ok2, s_cm, _ = self.compute_sim3(m, pend["kf"], cand)
-                self.stage_ms["loop_verify"] = (time.perf_counter() - t0) * 1e3
+                with trace.span("loop.verify"):
+                    ok2, s_cm, _ = self.compute_sim3(m, pend["kf"], cand)
                 if not ok2:
                     self.n_verify_fail += 1
                 else:
-                    t0 = time.perf_counter()
-                    m, closed = self.correct(m, pend["kf"], cand, s_cm, W=W)
-                    self.stage_ms["loop_correct"] = \
-                        (time.perf_counter() - t0) * 1e3
+                    with trace.span("loop.correct"):
+                        m, closed = self.correct(m, pend["kf"], cand, s_cm,
+                                                 W=W)
                     if closed:
                         self.last_loop_kf_seq = kf_seq
 
         if not closed and self.gba_remaining > 0:
-            t0 = time.perf_counter()
-            m = self.gba_slice(m)
-            if self.profile:
-                synchronize(m.kf_pose.device)
-                self.stage_ms["gba_slice"] = (time.perf_counter() - t0) * 1e3
+            with trace.span("loop.gba_slice"):
+                m = self.gba_slice(m)
 
         if kf_seq - self.last_loop_kf_seq < LOOP_COOLDOWN:
             self._push_empty_group(m)
             return m, closed
-        t0 = time.perf_counter()
-        stage0 = self._vocab_stage
-        self._pending_detect = self.detect_async(
-            m, cur_kf, W=W, n_live_kf=n_live_kf, kf_seq=kf_seq)
-        if self.profile:
-            dt = (time.perf_counter() - t0) * 1e3
-            if self._vocab_stage != stage0:
-                self.stage_ms["vocab_retrain"] = self.last_retrain_ms
-                dt = max(dt - self.last_retrain_ms, 0.0)
-            self.stage_ms["loop_detect"] = dt
+        with trace.span("loop.detect"):
+            self._pending_detect = self.detect_async(
+                m, cur_kf, W=W, n_live_kf=n_live_kf, kf_seq=kf_seq)
         return m, closed
 
 
+@trace.traced("setup.warm_up")
 def warm_up(cfg: SlamConfig, device):
     """Run the loop closer's forward-mode Jacobians and solvers once on
     tiny problems, so that their one-time setup is paid when the

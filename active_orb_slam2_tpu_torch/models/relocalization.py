@@ -53,6 +53,7 @@ from active_orb_slam2_tpu_torch.ops.matching import (
 from active_orb_slam2_tpu_torch.ops.pose_opt_kernel import (
     pose_optimization_fused)
 from active_orb_slam2_tpu_torch.ops.topk import stable_topk
+from active_orb_slam2_tpu_torch.utils import trace
 
 CHI2_2D = 5.991
 N_HYPOTHESES = 256
@@ -152,6 +153,7 @@ def gumbel_noise(n_candidates: int, n_features: int, generator, device):
         u, min=torch.finfo(torch.float32).tiny)))
 
 
+@trace.traced("setup.warm_up")
 def warm_up_solvers(n_candidates: int, device):
     """Run the relocalizer's DLT once at its shapes, on zeros, so that
     the one-time setup of its two batched solvers and the loading of

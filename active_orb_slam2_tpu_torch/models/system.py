@@ -87,9 +87,9 @@ from active_orb_slam2_tpu_torch.models.sim3_solver import (
 from active_orb_slam2_tpu_torch.models.tracking import (
     STATS_POSE, STATS_REF_FID, STATS_REF_POSE, build_create_keyframe,
     build_track_step, init_track_state)
-from active_orb_slam2_tpu_torch.utils import np_se3
+from active_orb_slam2_tpu_torch.utils import np_se3, trace
 from active_orb_slam2_tpu_torch.utils.transfer import (
-    landed, synchronize, to_pinned, upload)
+    landed, to_pinned, upload)
 
 NOT_INITIALIZED = 0
 OK = 1
@@ -120,8 +120,13 @@ class System:
     from the map's descriptors.  ``pipeline_depth`` and ``retire_batch``
     default by sensor: 0 and 1 for ``cfg.sensor == "mono"``, else 6 and
     4.
+
+    The tracer (``utils/trace.py``) records the stages of each call when
+    it is on: ``system.track`` is the root of a frame (``frame_id``),
+    ``setup.system`` the construction.
     """
 
+    @trace.traced("setup.system")
     def __init__(self, cfg: SlamConfig, use_mapping: bool = True,
                  use_loop_closing: bool = False, pipeline_depth=None,
                  retire_batch=None, device=torch.device("cuda"),
@@ -154,8 +159,6 @@ class System:
         self.localization_only = False
         self.loop_closer = LoopCloser(cfg, vocab_path=vocab_path) \
             if use_loop_closing else None
-        self.profile_stages = False      # synchronized per-stage times
-        self.stage_ms = {}
         self.relocalizer = None          # built at the first LOST frame
         self._reloc_gen = None           # its random numbers
         if self.device.type == "cuda":
@@ -240,10 +243,12 @@ class System:
     def _fetch_stats(self, entries):
         for e in entries:
             if e["batch"]["event"] is not None:
-                e["batch"]["event"].synchronize()
+                with trace.span("system.wait"):
+                    e["batch"]["event"].synchronize()
         return np.stack([e["batch"]["host"][e["slot"]].numpy()
                          for e in entries])
 
+    @trace.traced("system.retire")
     def _retire(self, n):
         """Pop the n oldest in-flight frames and run the host state
         machine on their stats: metrics, LOST detection, keyframe
@@ -334,25 +339,18 @@ class System:
         self.kf_records.append((timestamp, k))
         W = None
         if self.use_mapping:
-            t0 = time.perf_counter()
-            _, victim, vparent, vpose, vppose, W = self.keyframe_mapping(
-                self.map, k, self.kf_seq)
-            if self.profile_stages:
-                synchronize(self.device)
-                self.stage_ms["mapping"] = (time.perf_counter() - t0) * 1e3
+            with trace.span("mapping", frame=frame_id):
+                _, victim, vparent, vpose, vppose, W = self.keyframe_mapping(
+                    self.map, k, self.kf_seq)
             snap = torch.cat([torch.stack([victim, vparent]).to(vpose.dtype),
                               vpose, vppose])
             self._pending_culls.append(to_pinned(snap))
         if self.loop_closer is not None:
-            lc = self.loop_closer
-            lc.profile = self.profile_stages
             pre_pose_k = self.map.kf_pose[k].clone()
-            self.map, closed = lc.process_keyframe(
-                self.map, k, self.kf_seq, W=W, n_live_kf=self.n_live_kf,
-                slot_fid=self._slot_fid)
-            if self.profile_stages:
-                self.stage_ms.update(lc.stage_ms)
-                lc.stage_ms = {}
+            with trace.span("loop", frame=frame_id):
+                self.map, closed = self.loop_closer.process_keyframe(
+                    self.map, k, self.kf_seq, W=W, n_live_kf=self.n_live_kf,
+                    slot_fid=self._slot_fid)
             if closed:
                 self.n_loops_closed += 1
                 self.track = self.track._replace(pose=_rebase_pose(
@@ -464,6 +462,7 @@ class System:
         relocalization only)."""
         return torch.tensor(v, dtype=dtype, device=self.device)
 
+    @trace.traced("system.upload")
     def _upload(self, *arrays):
         """Host numpy arrays -> device tensors, without blocking the host
         on the card (pinned memory, non-blocking copies)."""
@@ -520,18 +519,20 @@ class System:
         d = np.asarray(depth)
         if d.dtype != np.uint16:
             d = np.clip(d * 1e3, 0, 65535).astype(np.uint16)
-        return self._track_frame(self.make_rgbd, self._upload(g, d),
-                                 timestamp, self._initialize)
+        return self._track_frame(self.make_rgbd, (g, d), timestamp,
+                                 self._initialize)
 
-    def _track_frame(self, make, inputs, timestamp, initialize):
-        """Build the frame on the device and track it, or, before the map
-        exists, hand it to ``initialize(frame, n_depth, timestamp)``."""
-        frame, n_depth = make(*inputs)
-        if self._state == NOT_INITIALIZED:
-            pose = initialize(frame, n_depth, timestamp)
-            self.frame_id += 1
-            return se3_to_mat44(pose)
-        return self._dispatch_track(frame, timestamp)
+    def _track_frame(self, make, images, timestamp, initialize):
+        """Upload the images, build the frame on the device and track it,
+        or, before the map exists, hand it to ``initialize(frame,
+        n_depth, timestamp)``: the tracer's root span of the frame."""
+        with trace.span("system.track", frame=self.frame_id):
+            frame, n_depth = make(*self._upload(*images))
+            if self._state == NOT_INITIALIZED:
+                pose = initialize(frame, n_depth, timestamp)
+                self.frame_id += 1
+                return se3_to_mat44(pose)
+            return self._dispatch_track(frame, timestamp)
 
     def _initialize(self, frame, n_depth, timestamp):
         """StereoInitialization: the first frame with enough depth points
@@ -594,8 +595,8 @@ class System:
         images = [np.asarray(a) for a in (left, right)]
         images = [a if a.dtype == np.uint8
                   else np.clip(a, 0, 255).astype(np.uint8) for a in images]
-        return self._track_frame(self._make_stereo, self._upload(*images),
-                                 timestamp, self._initialize)
+        return self._track_frame(self._make_stereo, images, timestamp,
+                                 self._initialize)
 
     def track_mono(self, gray, timestamp: float):
         """Process one monocular frame ([H, W] uint8 or float 0..255);
@@ -605,7 +606,7 @@ class System:
         if g.dtype != np.uint8:
             g = np.clip(g, 0, 255).astype(np.uint8)
         return self._track_frame(
-            self.make_mono, self._upload(g), timestamp,
+            self.make_mono, (g,), timestamp,
             lambda frame, _, t: self._initialize_mono(frame, t))
 
     def _initialize_mono(self, frame, timestamp):
@@ -700,6 +701,7 @@ class System:
         cands[:len(slots)] = slots
         return cands
 
+    @trace.traced("system.reloc")
     def _try_relocalize(self, frame) -> bool:
         """``Tracking::Relocalization`` against the newest keyframes:
         batched PnP RANSAC and two pose refinements; >= 50 inliers to

@@ -40,6 +40,7 @@ from active_orb_slam2_tpu_torch.ops.matching import (
 from active_orb_slam2_tpu_torch.ops.pose_opt_kernel import (
     pose_optimization_fused)
 from active_orb_slam2_tpu_torch.ops.topk import stable_topk
+from active_orb_slam2_tpu_torch.utils import trace
 
 # retired-stats vector layout (the step's packed per-frame scalars):
 # [0] motion-stage inliers  [1] local-stage inliers  [2] tracking ok
@@ -189,156 +190,166 @@ def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
     kf_min = max(tcfg.kf_min_interval, 1)
     max_kf = cfg.map.max_keyframes
 
+    @trace.traced("track")
     def track_step(m: MapState, frame: FrameData, st: TrackState,
                    allow_kf=False, loc_mode: bool = False):
         P = m.max_points
         F = st.assoc.shape[0]
-        pred = torch.where(st.vel_ok, se3_compose(st.velocity, st.pose),
-                           st.pose)
+        with trace.span("track.motion"):
+            pred = torch.where(st.vel_ok, se3_compose(st.velocity, st.pose),
+                               st.pose)
 
-        # ---- motion-model stage: re-find the last frame's points -------
-        # candidate f is the map point of last-frame feature f or, in
-        # localization-only mode, its temporal point (same descriptor)
-        prev_pts = torch.clamp(st.assoc, min=0).long()
-        map_ok = (st.assoc >= 0) & m.pt_valid[prev_pts]
-        cand_xyz, cand_desc, cand_maxd, cand_ok = (
-            m.pt_xyz[prev_pts], m.pt_desc[prev_pts], m.pt_max_dist[prev_pts],
-            map_ok)
-        if loc_mode:
-            use_tmp = st.tmp_ok & ~map_ok
-            cand_xyz = torch.where(use_tmp[:, None], st.tmp_xyz, cand_xyz)
-            cand_desc = torch.where(use_tmp[:, None], st.tmp_desc, cand_desc)
-            cand_maxd = torch.where(use_tmp, st.tmp_max_dist, cand_maxd)
-            cand_ok = map_ok | use_tmp
-        idx1, cok = _match_candidates(
-            cam, pred, cand_xyz, cand_desc, cand_maxd, cand_ok, frame,
-            radius_base=15.0, ratio=tcfg.nn_ratio_motion, max_dist=100.0,
-            already=torch.zeros_like(frame.valid), query_angle=st.angle)
-        matched_c = (idx1 >= 0) & cok
-        # temporal matches feed the motion-only BA, never the map
-        # association
-        map_c = matched_c & ~use_tmp if loc_mode else matched_c
-        assoc1 = scatter_max(F, torch.clamp(idx1, min=0),
-                             torch.where(map_c, prev_pts, -1))
-        if loc_mode:
-            tmp_src = scatter_max(F, torch.clamp(idx1, min=0), torch.where(
-                matched_c & use_tmp,
-                torch.arange(F, dtype=torch.int32, device=idx1.device), -1))
-            tmp_src = torch.where(assoc1 >= 0, -1, tmp_src)
-            pw1 = torch.where((tmp_src >= 0)[:, None],
-                              st.tmp_xyz[torch.clamp(tmp_src, min=0).long()],
-                              m.pt_xyz[torch.clamp(assoc1, min=0).long()])
-            res1 = _pose_opt(cam, pred, frame, pw1,
-                             (assoc1 >= 0) | (tmp_src >= 0))
-        else:
-            res1 = _pose_opt_from_assoc(cam, pred, m, frame, assoc1)
-        # TrackReferenceKeyFrame-style fallback: on a collapsed motion
-        # stage, drop its pose and associations and search wide from the
-        # last frame's pose
-        mm_ok = res1.n_inliers >= tcfg.min_inliers_track
-        assoc1 = torch.where(mm_ok & res1.inliers, assoc1, -1)
-        pose = torch.where(mm_ok, res1.pose, st.pose)
-        local_radius = torch.where(mm_ok, 4.0, 25.0)
+            # ---- motion-model stage: re-find the last frame's points -------
+            # candidate f is the map point of last-frame feature f or, in
+            # localization-only mode, its temporal point (same descriptor)
+            prev_pts = torch.clamp(st.assoc, min=0).long()
+            map_ok = (st.assoc >= 0) & m.pt_valid[prev_pts]
+            cand_xyz, cand_desc, cand_maxd, cand_ok = (
+                m.pt_xyz[prev_pts], m.pt_desc[prev_pts],
+                m.pt_max_dist[prev_pts],
+                map_ok)
+            if loc_mode:
+                use_tmp = st.tmp_ok & ~map_ok
+                cand_xyz = torch.where(use_tmp[:, None], st.tmp_xyz, cand_xyz)
+                cand_desc = torch.where(use_tmp[:, None], st.tmp_desc,
+                                        cand_desc)
+                cand_maxd = torch.where(use_tmp, st.tmp_max_dist, cand_maxd)
+                cand_ok = map_ok | use_tmp
+            idx1, cok = _match_candidates(
+                cam, pred, cand_xyz, cand_desc, cand_maxd, cand_ok, frame,
+                radius_base=15.0, ratio=tcfg.nn_ratio_motion, max_dist=100.0,
+                already=torch.zeros_like(frame.valid), query_angle=st.angle)
+            matched_c = (idx1 >= 0) & cok
+            # temporal matches feed the motion-only BA, never the map
+            # association
+            map_c = matched_c & ~use_tmp if loc_mode else matched_c
+            assoc1 = scatter_max(F, torch.clamp(idx1, min=0),
+                                 torch.where(map_c, prev_pts, -1))
+            if loc_mode:
+                tmp_src = scatter_max(
+                    F, torch.clamp(idx1, min=0), torch.where(
+                        matched_c & use_tmp,
+                        torch.arange(F, dtype=torch.int32,
+                                     device=idx1.device), -1))
+                tmp_src = torch.where(assoc1 >= 0, -1, tmp_src)
+                pw1 = torch.where(
+                    (tmp_src >= 0)[:, None],
+                    st.tmp_xyz[torch.clamp(tmp_src, min=0).long()],
+                    m.pt_xyz[torch.clamp(assoc1, min=0).long()])
+                res1 = _pose_opt(cam, pred, frame, pw1,
+                                 (assoc1 >= 0) | (tmp_src >= 0))
+            else:
+                res1 = _pose_opt_from_assoc(cam, pred, m, frame, assoc1)
+            # TrackReferenceKeyFrame-style fallback: on a collapsed motion
+            # stage, drop its pose and associations and search wide from the
+            # last frame's pose
+            mm_ok = res1.n_inliers >= tcfg.min_inliers_track
+            assoc1 = torch.where(mm_ok & res1.inliers, assoc1, -1)
+            pose = torch.where(mm_ok, res1.pose, st.pose)
+            local_radius = torch.where(mm_ok, 4.0, 25.0)
 
-        # ---- local-map stage -------------------------------------------
-        # local-KF vote through the forward observation store; on a
-        # motion-stage collapse the previous frame's associations vote
-        vote_src = torch.where(mm_ok, assoc1, st.assoc)
-        vote_mask_p = scatter_any(P, torch.clamp(vote_src, min=0),
-                                  vote_src >= 0)
-        matched_mask_p = scatter_any(P, torch.clamp(assoc1, min=0),
-                                     assoc1 >= 0)
-        obs_pt = torch.clamp(m.kf_point, min=0).long()
-        votes = ((m.kf_point >= 0) & vote_mask_p[obs_pt]
-                 & m.kf_valid[:, None]).to(torch.int32).sum(1)     # [K]
-        nloc = min(tcfg.max_local_keyframes, m.max_keyframes)
-        vote_w, local_kf = stable_topk(votes, nloc)
-        local_kf_ok = vote_w > 0
-        lk_point = m.kf_point[local_kf]                            # [L, F]
-        lk_obs = (lk_point >= 0) & local_kf_ok[:, None]
-        local_mask = scatter_any(P, torch.clamp(lk_point, min=0).reshape(-1),
-                                 lk_obs.reshape(-1)) & m.pt_valid
+        with trace.span("track.local_map"):
+            # ---- local-map stage -------------------------------------------
+            # local-KF vote through the forward observation store; on a
+            # motion-stage collapse the previous frame's associations vote
+            vote_src = torch.where(mm_ok, assoc1, st.assoc)
+            vote_mask_p = scatter_any(P, torch.clamp(vote_src, min=0),
+                                      vote_src >= 0)
+            matched_mask_p = scatter_any(P, torch.clamp(assoc1, min=0),
+                                         assoc1 >= 0)
+            obs_pt = torch.clamp(m.kf_point, min=0).long()
+            votes = ((m.kf_point >= 0) & vote_mask_p[obs_pt]
+                     & m.kf_valid[:, None]).to(torch.int32).sum(1)     # [K]
+            nloc = min(tcfg.max_local_keyframes, m.max_keyframes)
+            vote_w, local_kf = stable_topk(votes, nloc)
+            local_kf_ok = vote_w > 0
+            lk_point = m.kf_point[local_kf]                            # [L, F]
+            lk_obs = (lk_point >= 0) & local_kf_ok[:, None]
+            local_mask = scatter_any(
+                P, torch.clamp(lk_point, min=0).reshape(-1),
+                lk_obs.reshape(-1)) & m.pt_valid
 
-        vis, _, _, _, _ = in_frustum(cam, pose, m.pt_xyz, m.pt_normal,
-                                     m.pt_min_dist, m.pt_max_dist)
-        cand_mask = local_mask & vis & ~matched_mask_p
-        visible_mask = local_mask & vis
-        # the local_cand lowest-index candidates
-        _, cand_idx = stable_topk(cand_mask.to(torch.int32), local_cand)
-        idx2, ok2 = _match_candidates(
-            cam, pose, m.pt_xyz[cand_idx], m.pt_desc[cand_idx],
-            m.pt_max_dist[cand_idx], cand_mask[cand_idx], frame,
-            radius_base=local_radius, ratio=tcfg.nn_ratio_local,
-            max_dist=float(tcfg.th_high), already=assoc1 >= 0)
-        assoc2 = scatter_max(F, torch.clamp(idx2, min=0),
-                             torch.where((idx2 >= 0) & ok2, cand_idx, -1))
-        assoc = torch.where(assoc1 >= 0, assoc1, assoc2)
+            vis, _, _, _, _ = in_frustum(cam, pose, m.pt_xyz, m.pt_normal,
+                                         m.pt_min_dist, m.pt_max_dist)
+            cand_mask = local_mask & vis & ~matched_mask_p
+            visible_mask = local_mask & vis
+            # the local_cand lowest-index candidates
+            _, cand_idx = stable_topk(cand_mask.to(torch.int32), local_cand)
+            idx2, ok2 = _match_candidates(
+                cam, pose, m.pt_xyz[cand_idx], m.pt_desc[cand_idx],
+                m.pt_max_dist[cand_idx], cand_mask[cand_idx], frame,
+                radius_base=local_radius, ratio=tcfg.nn_ratio_local,
+                max_dist=float(tcfg.th_high), already=assoc1 >= 0)
+            assoc2 = scatter_max(F, torch.clamp(idx2, min=0),
+                                 torch.where((idx2 >= 0) & ok2, cand_idx, -1))
+            assoc = torch.where(assoc1 >= 0, assoc1, assoc2)
 
-        res2 = _pose_opt_from_assoc(cam, pose, m, frame, assoc)
-        assoc = torch.where(res2.inliers, assoc, -1)
-        pose = res2.pose
-        found_mask = scatter_any(P, torch.clamp(assoc, min=0), assoc >= 0)
+            res2 = _pose_opt_from_assoc(cam, pose, m, frame, assoc)
+            assoc = torch.where(res2.inliers, assoc, -1)
+            pose = res2.pose
+            found_mask = scatter_any(P, torch.clamp(assoc, min=0), assoc >= 0)
 
-        velocity = se3_compose(pose, se3_inverse(st.pose))
-        ok = res2.n_inliers >= tcfg.min_inliers_local
-        if loc_mode:
-            # visual odometry on temporal points when the map is out of
-            # view (the reference's mbVO state)
-            ok = ok | (res1.n_inliers >= 20)
-        # temporal points from this frame's depth (UpdateLastFrame)
-        Twc = se3_inverse(pose)
-        t_z = frame.depth
-        t_x = (frame.uv[:, 0] - cam.cx) / cam.fx * t_z
-        t_y = (frame.uv[:, 1] - cam.cy) / cam.fy * t_z
-        tmp_pw = se3_apply(Twc, torch.stack([t_x, t_y, t_z], dim=-1))
-        tmp_dist = torch.linalg.vector_norm(
-            tmp_pw - _cam_center(pose)[None], dim=-1)
-        close = frame.valid & (frame.depth > 0.1) \
-            & (frame.depth < tcfg.th_depth)
+        with trace.span("track.keyframe"):
+            velocity = se3_compose(pose, se3_inverse(st.pose))
+            ok = res2.n_inliers >= tcfg.min_inliers_local
+            if loc_mode:
+                # visual odometry on temporal points when the map is out of
+                # view (the reference's mbVO state)
+                ok = ok | (res1.n_inliers >= 20)
+            # temporal points from this frame's depth (UpdateLastFrame)
+            Twc = se3_inverse(pose)
+            t_z = frame.depth
+            t_x = (frame.uv[:, 0] - cam.cx) / cam.fx * t_z
+            t_y = (frame.uv[:, 1] - cam.cy) / cam.fy * t_z
+            tmp_pw = se3_apply(Twc, torch.stack([t_x, t_y, t_z], dim=-1))
+            tmp_dist = torch.linalg.vector_norm(
+                tmp_pw - _cam_center(pose)[None], dim=-1)
+            close = frame.valid & (frame.depth > 0.1) \
+                & (frame.depth < tcfg.th_depth)
 
-        apply_visibility_counters(m, visible_mask, found_mask)
+            apply_visibility_counters(m, visible_mask, found_mask)
 
-        # ---- NeedNewKeyFrame + CreateNewKeyFrame, decided on device ------
-        close_tracked = (close & (assoc >= 0)).sum()
-        close_unmatched = (close & (assoc < 0)).sum()
-        since = st.frames_since_kf + 1
-        live = m.kf_valid.sum()
-        weak = res2.n_inliers < tcfg.kf_ref_ratio * torch.clamp(
-            st.last_kf_inliers, min=1)
-        need_close = (close_tracked < 100) & (close_unmatched > 70)
-        need = (ok & allow_kf & (since >= kf_min) & (live < max_kf)
-                & ((since >= tcfg.kf_max_interval)
-                   | ((weak | need_close) & (res2.n_inliers > 15))))
-        k, inserted = create_kf_fn(m, frame, pose, assoc, st.frame_id,
-                                   st.kf_seq, st.last_kf_slot, enable=need)
-        kf_slot = torch.where(inserted, k, -1).to(torch.int32)
+            # ---- NeedNewKeyFrame + CreateNewKeyFrame, decided on device --
+            close_tracked = (close & (assoc >= 0)).sum()
+            close_unmatched = (close & (assoc < 0)).sum()
+            since = st.frames_since_kf + 1
+            live = m.kf_valid.sum()
+            weak = res2.n_inliers < tcfg.kf_ref_ratio * torch.clamp(
+                st.last_kf_inliers, min=1)
+            need_close = (close_tracked < 100) & (close_unmatched > 70)
+            need = (ok & allow_kf & (since >= kf_min) & (live < max_kf)
+                    & ((since >= tcfg.kf_max_interval)
+                       | ((weak | need_close) & (res2.n_inliers > 15))))
+            k, inserted = create_kf_fn(m, frame, pose, assoc, st.frame_id,
+                                       st.kf_seq, st.last_kf_slot, enable=need)
+            kf_slot = torch.where(inserted, k, -1).to(torch.int32)
 
-        i32 = torch.int32
-        new_st = TrackState(
-            pose=pose, velocity=velocity, vel_ok=st.ok, assoc=assoc,
-            angle=frame.angle, n_inliers=res2.n_inliers, ok=ok,
-            frame_id=st.frame_id + 1,
-            kf_seq=st.kf_seq + inserted.to(i32),
-            last_kf_slot=torch.where(inserted, kf_slot, st.last_kf_slot),
-            last_kf_inliers=torch.where(inserted, res2.n_inliers,
-                                        st.last_kf_inliers),
-            frames_since_kf=torch.where(inserted, 0, since).to(i32),
-            tmp_xyz=tmp_pw, tmp_desc=frame.desc,
-            tmp_max_dist=tmp_dist * torch.pow(
-                1.2, frame.level.to(torch.float32)),
-            tmp_ok=close)
+            i32 = torch.int32
+            new_st = TrackState(
+                pose=pose, velocity=velocity, vel_ok=st.ok, assoc=assoc,
+                angle=frame.angle, n_inliers=res2.n_inliers, ok=ok,
+                frame_id=st.frame_id + 1,
+                kf_seq=st.kf_seq + inserted.to(i32),
+                last_kf_slot=torch.where(inserted, kf_slot, st.last_kf_slot),
+                last_kf_inliers=torch.where(inserted, res2.n_inliers,
+                                            st.last_kf_inliers),
+                frames_since_kf=torch.where(inserted, 0, since).to(i32),
+                tmp_xyz=tmp_pw, tmp_desc=frame.desc,
+                tmp_max_dist=tmp_dist * torch.pow(
+                    1.2, frame.level.to(torch.float32)),
+                tmp_ok=close)
 
-        # packed per-frame scalars + pose + ref-KF pose: one pull for the
-        # host state machine
-        ref_slot = torch.clamp(new_st.last_kf_slot, min=0).long().view(1)
-        f32 = torch.float32
-        stats = torch.cat([torch.stack([
-            res1.n_inliers.to(f32), res2.n_inliers.to(f32), ok.to(f32),
-            close_tracked.to(f32), close_unmatched.to(f32),
-            (assoc >= 0).sum().to(f32), kf_slot.to(f32),
-            new_st.last_kf_slot.to(f32)]),
-            pose, m.kf_pose[ref_slot][0],
-            m.kf_frame_id[ref_slot].to(f32)])
+            # packed per-frame scalars + pose + ref-KF pose: one pull for the
+            # host state machine
+            ref_slot = torch.clamp(new_st.last_kf_slot, min=0).long().view(1)
+            f32 = torch.float32
+            stats = torch.cat([torch.stack([
+                res1.n_inliers.to(f32), res2.n_inliers.to(f32), ok.to(f32),
+                close_tracked.to(f32), close_unmatched.to(f32),
+                (assoc >= 0).sum().to(f32), kf_slot.to(f32),
+                new_st.last_kf_slot.to(f32)]),
+                pose, m.kf_pose[ref_slot][0],
+                m.kf_frame_id[ref_slot].to(f32)])
         return new_st, stats, m
 
     return track_step

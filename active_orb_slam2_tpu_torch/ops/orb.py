@@ -29,6 +29,7 @@ from active_orb_slam2_tpu_torch.ops.image import (
     gaussian_kernel1d, resize_bilinear)
 from active_orb_slam2_tpu_torch.ops.patches import PATCH, extract_patches
 from active_orb_slam2_tpu_torch.ops.topk import stable_topk
+from active_orb_slam2_tpu_torch.utils import trace
 
 HALF_PATCH = 15      # IC_Angle / BRIEF patch radius (reference PATCH_SIZE=31)
 N_ANGLE_BINS = 30    # steering quantized to 12 degrees
@@ -261,7 +262,9 @@ def level_columns(n_per_level: tuple, scale_factor: float,
 
 
 def build_extractor(cfg: OrbConfig, height: int, width: int):
-    """Return ``image [H, W] float32 -> OrbFeatures`` for this size."""
+    """Return ``image [H, W] float32 -> OrbFeatures`` for this size.
+    Its stages are the tracer's ``frame.pyramid``, ``frame.fast`` and
+    ``frame.topk`` (once a level) and ``frame.describe``."""
     sizes = level_sizes(height, width, cfg)
     n_per_level = features_per_level(cfg)
 
@@ -270,15 +273,20 @@ def build_extractor(cfg: OrbConfig, height: int, width: int):
         for (h, w), n_l in zip(sizes, n_per_level):
             # each level is resized straight from level 0, as in the
             # JAX package
-            level_img = resize_bilinear(img, h, w)
-            score = threshold_fallback(nms3x3(fast_score_map(level_img)), cfg)
-            y, x, r = detect_level(score, n_l, cfg)
+            with trace.span("frame.pyramid"):
+                level_img = resize_bilinear(img, h, w)
+            with trace.span("frame.fast"):
+                score = threshold_fallback(
+                    nms3x3(fast_score_map(level_img)), cfg)
+            with trace.span("frame.topk"):
+                y, x, r = detect_level(score, n_l, cfg)
             levels.append(level_img)
             ys.append(y)
             xs.append(x)
             resp.append(r)
-        ys, xs, resp = torch.cat(ys), torch.cat(xs), torch.cat(resp)
-        ang, desc = keypoint_stage(levels, ys, xs, n_per_level, cfg.pad)
+        with trace.span("frame.describe"):
+            ys, xs, resp = torch.cat(ys), torch.cat(xs), torch.cat(resp)
+            ang, desc = keypoint_stage(levels, ys, xs, n_per_level, cfg.pad)
         level, scale = level_columns(tuple(n_per_level), cfg.scale_factor,
                                      img.device)
         uv = torch.stack([xs.to(torch.float32) * scale,

@@ -10,6 +10,8 @@ CPU both are plain tensors.
 import numpy as np
 import torch
 
+from active_orb_slam2_tpu_torch.utils import trace
+
 
 def to_pinned(t):
     """Start a non-blocking copy of device tensor ``t`` into pinned host
@@ -26,14 +28,16 @@ def to_pinned(t):
 def landed(host, event):
     """The numpy array of a :func:`to_pinned` copy, once it has landed."""
     if event is not None:
-        event.synchronize()
+        with trace.span("system.wait"):
+            event.synchronize()
     return host.numpy()
 
 
 def synchronize(device):
     """Wait for the card (no-op on the CPU)."""
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+        with trace.span("system.wait"):
+            torch.cuda.synchronize(device)
 
 
 def upload(device, *arrays):

@@ -23,8 +23,9 @@ The windows, as in ``bench.py``:
 * ``mapping_timing``: ms per keyframe-mapping call on the tracking
   window's arena, each call on a fresh copy, synchronized, median of 5;
 * ``full_pipeline_window``: the default 512 / 65,536 arena, mapping and
-  loop closing on, 72 frames, the last third timed; stage medians with
-  ``System.profile_stages`` over the last third of the warm-up;
+  loop closing on, 72 frames, the last third timed; medians of the
+  keyframe stages' spans, traced with ``trace.enable(sync=True)`` over
+  the last third of the warm-up;
 * ``stereo_kitti_shape``: 1226x370, 2000 features, 150 pairs of a
   closed circuit (rendered in a process pool), mapping and loop closing
   on, the last 30 timed: frames/s, rigid ATE, keyframes, loops closed;
@@ -271,25 +272,27 @@ def mapping_timing(slam, reps=5):
 def full_pipeline_window(frames, device="cuda", cfg=None):
     """Deployment-shape window: mapping and loop closing on, the default
     arena; the last third of the frames (at least 12) timed after a
-    drain, stage medians (each stage's first sample dropped) taken with
-    ``profile_stages`` over the last third of the warm-up.  Returns
+    drain, medians of the keyframe stages' spans (``trace.
+    KEYFRAME_STAGES``; each stage's first sample dropped) traced with
+    ``enable(sync=True)`` over the last third of the warm-up.  Returns
     (ms/frame, keyframes inserted, stage medians in ms)."""
+    from active_orb_slam2_tpu_torch.utils import trace
     slam = _system(cfg or full_pipeline_config(), device,
                    use_mapping=True, use_loop_closing=True)
     _reset_peak(device)
     n = len(frames)
     measure = max(n // 3, 12)
     warm = n - measure
-    stage_hist = {}
     for i in range(warm):
-        slam.profile_stages = i >= (2 * warm) // 3
+        if i == (2 * warm) // 3:
+            trace.reset()
+            trace.enable(sync=True)
         slam.track_rgbd(*frames[i], i / 30.0)
-        for k, v in slam.stage_ms.items():
-            stage_hist.setdefault(k, []).append(v)
-        slam.stage_ms = {}
         if i % 16 == 0:
             _lap(f"full-pipeline warmup {i} (kf={slam.kf_seq})")
-    slam.profile_stages = False
+    trace.disable()
+    stage_hist = trace.durations_ms(trace.KEYFRAME_STAGES)
+    trace.reset()
     slam.flush()
     sync(device)
     _lap(f"measuring full pipeline ({slam.kf_seq} KFs after warmup)")
@@ -299,12 +302,12 @@ def full_pipeline_window(frames, device="cuda", cfg=None):
     slam.flush()
     sync(device)
     ms = (time.perf_counter() - t0) / measure * 1e3
-    stage_ms = {k: float(np.median(v[1:] if len(v) > 1 else v))
-                for k, v in stage_hist.items()}
+    stages = {k: float(np.median(v[1:] if len(v) > 1 else v))
+              for k, v in stage_hist.items()}
     _lap(f"full pipeline: {ms:.2f} ms/frame ({slam.kf_seq} KFs) "
-         f"stages={stage_ms}")
+         f"stages={stages}")
     _lap_peak("full pipeline", device)
-    return ms, slam.kf_seq, stage_ms
+    return ms, slam.kf_seq, stages
 
 
 def stereo_kitti_shape(device="cuda", cfg=None, pairs=None, gt=None,

@@ -737,20 +737,22 @@ def phase_timing(checks):
             for name, c in checks.items()}
 
 
+LAUNCH_COUNTERS = {"pose_opt": "k1.launches", "keypoints": "k2.launches"}
+_launch_base = {}
+
+
 def kernel_launches():
-    from active_orb_slam2_tpu_torch.kernels.keypoints import (
-        keypoint_stage_cuda)
-    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
-    return {"pose_opt": pose_opt_cuda.launches,
-            "keypoints": keypoint_stage_cuda.launches}
+    """K1's and K2's launches (the tracer's counters) since the last
+    ``reset_launches``."""
+    from active_orb_slam2_tpu_torch.utils import trace
+    now = trace.counters()
+    return {k: now.get(c, 0) - _launch_base.get(c, 0)
+            for k, c in LAUNCH_COUNTERS.items()}
 
 
 def reset_launches():
-    from active_orb_slam2_tpu_torch.kernels.keypoints import (
-        keypoint_stage_cuda)
-    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
-    keypoint_stage_cuda.launches = 0
-    pose_opt_cuda.launches = 0
+    from active_orb_slam2_tpu_torch.utils import trace
+    _launch_base.update(trace.counters())
 
 
 def count_host_syncs(slam, frames, track="track_rgbd"):
@@ -1578,6 +1580,7 @@ def phase_retrain(device, cfg, cache):
     from active_orb_slam2_tpu_torch.models.map_state import (
         MapState, covisibility_weights)
     from active_orb_slam2_tpu_torch.models.system import System
+    from active_orb_slam2_tpu_torch.utils import trace
     t_phase = time.perf_counter()
     slam = System(cfg, use_loop_closing=True, device=device)
     lc = slam.loop_closer
@@ -1597,11 +1600,17 @@ def phase_retrain(device, cfg, cache):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     inputs = (frames[i % len(frames)] for i in range(RETRAIN_MAX_FRAMES))
+    trace.reset()
+    trace.enable()             # unsynchronized: for the training's span
     with recorded_relocalizers() as rec, scoring_paths(lc) as paths, \
             timed_loop_waits(lc, quiet=True) as waits:
         n_sync, where, n = track_counting_syncs(slam, inputs, "track_rgbd",
                                                 1 / 30.0, until=until)
         slam.flush()
+    trace.disable()
+    retrain_ms = trace.durations_ms(("loop.retrain",)).get(
+        "loop.retrain", [0.0])[-1]
+    trace.reset()
     torch.cuda.synchronize()
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -1620,7 +1629,7 @@ def phase_retrain(device, cfg, cache):
         f"(keyframe {retrain.get('kf_seq')}, {retrain.get('live')} live), "
         f"vocabulary stage {lc._vocab_stage}, {lc.vocab.n_words} words; "
         f"retrain stall (descriptor read, training, cache drop) "
-        f"{lc.last_retrain_ms:.1f} ms; ensure_vocabulary calls that trained "
+        f"{retrain_ms:.1f} ms; ensure_vocabulary calls that trained "
         f"(ms synchronized, words) "
         f"{[t for t in trainings if t[0] > 50.0]}; scorings after the "
         f"retrain: sparse {len(after['sparse'])}, dense {len(after['dense'])}")
@@ -1860,9 +1869,11 @@ def phase_loop_pipeline(device, frames, traj):
     loop circle and its first 40 frames again: timed run with launch
     counts, ATE, peak memory and at least one loop closed (the closure
     accepted by the chi2 gate); a second run counting host syncs outside
-    the loop closer's waits; a third with per-stage times."""
+    the loop closer's waits; a third with the keyframe stages' spans,
+    synchronized (``trace.enable(sync=True)``)."""
     import torch
     from active_orb_slam2_tpu_torch.models.system import System
+    from active_orb_slam2_tpu_torch.utils import trace
     cfg = vga_config("mapping")
     inputs, gt = loop_inputs(frames, traj)
     t0 = time.perf_counter()
@@ -1871,9 +1882,14 @@ def phase_loop_pipeline(device, frames, traj):
     build_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    trace.reset()
+    trace.enable()             # unsynchronized: for the training's span
     with recorded_relocalizers() as rec, \
             timed_loop_waits(slam.loop_closer) as waits:
         ms_frame, calls = run_frames(slam, inputs, timed=True)
+    trace.disable()
+    retrain_ms = trace.durations_ms(("loop.retrain",)).get(
+        "loop.retrain", [0.0])[-1]
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     ate = trajectory_ate(slam, gt)
@@ -1886,17 +1902,16 @@ def phase_loop_pipeline(device, frames, traj):
     del second
 
     third = System(cfg, use_loop_closing=True, device=device)
-    third.profile_stages = True
-    stages = {}
+    trace.reset()
+    trace.enable(sync=True)
     for i, images in enumerate(inputs):
         third.track_rgbd(*images, i / 30.0)
-        for k, v in third.stage_ms.items():
-            stages.setdefault(k, []).append(v)
-        third.stage_ms = {}
     third.flush()
+    trace.disable()
     del third
-    stage_ms = {k: (round(float(np.median(v)), 3), len(v))
-                for k, v in stages.items()}
+    stages = {k: (round(float(np.median(v)), 3), len(v)) for k, v in
+              trace.durations_ms(trace.KEYFRAME_STAGES).items()}
+    trace.reset()
     log(f"loop pipeline: {len(slam.metrics)} tracked frames, keyframes "
         f"{slam.kf_seq}, live {slam.n_live_kf}, mapping calls {len(calls)}, "
         f"vocabulary {lc.vocab is not None and lc.vocab.n_words} words, "
@@ -1911,9 +1926,9 @@ def phase_loop_pipeline(device, frames, traj):
         f"{launches}")
     log(f"loop pipeline: verifications and corrections (ms, synchronized): "
         f"{[(n, round(ms, 2), bool(out[0]) if n == 'compute_sim3' else bool(out[1])) for n, ms, _, out in waits.calls]}")
-    log(f"loop pipeline: stage ms (median, count; profiled run): {stage_ms}"
-        f"; vocabulary training in the timed run {lc.last_retrain_ms:.1f} ms "
-        f"(the later runs reuse the trained tree)")
+    log(f"loop pipeline: stage ms (median, count; traced run, "
+        f"synchronized): {stages}; vocabulary training in the timed run "
+        f"{retrain_ms:.1f} ms (the later runs reuse the trained tree)")
     check_all_ok(slam, "loop pipeline", n_tracked=len(inputs) - 1)
     if lc.vocab is None:
         raise RuntimeError("loop pipeline: no vocabulary was trained")
@@ -2690,7 +2705,7 @@ def phase_explore(device, arena):
     scorer = build_visibility_scorer(cfg.camera)
     m = slam.map
     grid = occupancy(m)
-    stage_ms = {
+    step_stages = {
         "grid": synced_ms(lambda: occupancy(m))[0],
         "scorer": synced_ms(lambda: score_grid_localizability(
             scorer, m, spec, headings=8, cell_stride=2))[0],
@@ -2698,7 +2713,7 @@ def phase_explore(device, arena):
         "step_copy": synced_ms(lambda: explorer.read_step(
             occupancy, scorer, m, spec))[0]}
     log(f"explore: on the final map, ms per call (median of 5, "
-        f"synchronized): {stage_ms}")
+        f"synchronized): {step_stages}")
 
     # one planning step of the final map, card against CPU
     x, z = xlog.positions[-1]
@@ -2959,6 +2974,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from active_orb_slam2_tpu_torch.kernels import build
+    from active_orb_slam2_tpu_torch.utils import trace
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -2972,10 +2988,13 @@ def main():
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 matmul is on; the port needs full float32")
 
-    t0 = time.perf_counter()
+    trace.enable()
     build.library()
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc, one per source, "
-        f"side by side: {build.build_info['seconds']:.2f} s) -> "
+    trace.disable()
+    build_ms, = trace.durations_ms(("setup.kernels",))["setup.kernels"]
+    trace.reset()
+    log(f"build: {build_ms / 1e3:.2f} s (the setup.kernels span: nvcc, one "
+        f"per source, side by side, or the cached libraries loaded) -> "
         f"{build.build_info['paths']}")
     for line in build.build_info["ptxas"].splitlines():
         if any(w in line for w in ("registers", "Compiling entry", "spill")):

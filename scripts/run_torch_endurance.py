@@ -131,12 +131,18 @@ def card_name_and_limit():
         and out.stdout.strip() else None
 
 
+# the keyframe stages' spans sampled by --profile-every -> record keys
+STAGE_KEYS = {"mapping": "mapping", "loop.detect": "loop_detect",
+              "loop.verify": "loop_verify", "loop.correct": "loop_correct",
+              "loop.gba_slice": "gba_slice"}
+
+
 def kernel_launches():
-    from active_orb_slam2_tpu_torch.kernels.keypoints import (
-        keypoint_stage_cuda)
-    from active_orb_slam2_tpu_torch.kernels.pose_opt import pose_opt_cuda
-    return {"pose_opt": pose_opt_cuda.launches,
-            "keypoints": keypoint_stage_cuda.launches}
+    """K1's and K2's launches so far (the tracer's counters)."""
+    from active_orb_slam2_tpu_torch.utils import trace
+    now = trace.counters()
+    return {"pose_opt": now.get("k1.launches", 0),
+            "keypoints": now.get("k2.launches", 0)}
 
 
 def memory_checkpoint(device, frame):
@@ -252,6 +258,7 @@ def run(args, cache=None, log=None):
     from active_orb_slam2_tpu_torch.models.local_mapping import (
         build_keyframe_mapping)
     from active_orb_slam2_tpu_torch.models.system import OK, System
+    from active_orb_slam2_tpu_torch.utils import trace
 
     device = torch.device(args.device)
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
@@ -278,9 +285,9 @@ def run(args, cache=None, log=None):
             cfg, triangulate=True, fuse=not args.no_fuse,
             local_ba=not args.no_local_ba, cull=not args.no_cull)
 
-    stage_hist = {"mapping": [], "loop_detect": [], "loop_verify": [],
-                  "loop_correct": [], "gba_slice": []}
+    stage_hist = {key: [] for key in STAGE_KEYS.values()}
     trainings = []
+    retrain_ms = 0.0
     timeline_f = open(args.timeline, "w") if args.timeline else None
 
     def kf_ate_now(fix_scale=False):
@@ -292,12 +299,6 @@ def run(args, cache=None, log=None):
         g = np.stack([cache[int(round(t * 30)) % args.unique][2]
                       for t, _ in slam.kf_records])
         return np_umeyama_ate(camera_centers(poses[slots]), g, fix_scale)
-
-    def collect(stage_ms):
-        for k, v in stage_ms.items():
-            if k in stage_hist:
-                stage_hist[k].append(v)
-        stage_ms.clear()
 
     gt, checkpoints = [], []
     lost_frames = peak_live_kf = peak_live_pt = 0
@@ -311,24 +312,30 @@ def run(args, cache=None, log=None):
     t_run = time.perf_counter()
     for i in range(n):
         g, d, c = cache[i % args.unique]
-        slam.profile_stages = (args.profile_every > 0
-                               and slam.kf_seq % args.profile_every == 0)
+        # every frame traced (the vocabulary training's span, also in a
+        # checkpoint's flush); the sampled keyframe events synchronized
+        # for their stages' spans
+        sampled = (args.profile_every > 0
+                   and slam.kf_seq % args.profile_every == 0)
+        trace.enable(sync=sampled)
         slam.track_rgbd(g, d, i / 30.0)
         gt.append(c)
-        collect(slam.stage_ms)
-        if lc is not None:
-            collect(lc.stage_ms)
-            if lc._vocab_stage != stage:
-                stage = lc._vocab_stage
-                trainings.append({"frame": i, "stage": stage,
-                                  "kf_seq": slam.kf_seq,
-                                  "live_kf": slam.n_live_kf,
-                                  "n_words": lc.vocab.n_words,
-                                  "ms": round(lc.last_retrain_ms, 1)})
-                log(f"[{time.time() - t0:6.1f}s] vocabulary training "
-                    f"{stage}: {lc.vocab.n_words} words at frame {i}, "
-                    f"{slam.n_live_kf} live keyframes, "
-                    f"{lc.last_retrain_ms:.1f} ms")
+        spans = trace.durations_ms(tuple(STAGE_KEYS) + ("loop.retrain",))
+        trace.reset()
+        if sampled:
+            for name, key in STAGE_KEYS.items():
+                stage_hist[key] += spans.get(name, [])
+        if lc is not None and lc._vocab_stage != stage:
+            stage = lc._vocab_stage
+            retrain_ms = spans.get("loop.retrain", [0.0])[-1]
+            trainings.append({"frame": i, "stage": stage,
+                              "kf_seq": slam.kf_seq,
+                              "live_kf": slam.n_live_kf,
+                              "n_words": lc.vocab.n_words,
+                              "ms": round(retrain_ms, 1)})
+            log(f"[{time.time() - t0:6.1f}s] vocabulary training "
+                f"{stage}: {lc.vocab.n_words} words at frame {i}, "
+                f"{slam.n_live_kf} live keyframes, {retrain_ms:.1f} ms")
         if timeline_f is not None and (slam.kf_seq != prev_kf_seq
                                        or slam.n_loops_closed != prev_loops):
             ate = kf_ate_now()
@@ -366,6 +373,8 @@ def run(args, cache=None, log=None):
                 f"rej={getattr(lc, 'n_rejected', 0)} state={slam._state} "
                 f"mem={mem}")
     slam.flush()
+    trace.disable()
+    trace.reset()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t_run
@@ -439,8 +448,7 @@ def run(args, cache=None, log=None):
         "loop_correct_ms_p50": pct(stage_hist["loop_correct"], 50),
         "loop_correct_count": len(stage_hist["loop_correct"]),
         "gba_slice_ms_p50": pct(stage_hist["gba_slice"], 50),
-        "vocab_retrain_ms": round(getattr(lc, "last_retrain_ms", 0.0), 1)
-        if lc else 0.0,
+        "vocab_retrain_ms": round(retrain_ms, 1),
         "vocab_trainings": trainings,
         "profile_sampled_every": args.profile_every,
         "launches": launches,

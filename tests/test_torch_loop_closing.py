@@ -393,7 +393,6 @@ def test_recycled_gba_fixed_slot(setup, sequences):
     k_next = cur + 1 if cur + 1 < Ka + Kb else cur
     for recycled in (False, True):
         jl2, tl2 = copy.copy(jl), copy.copy(tl)
-        tl2.stage_ms = {}
         sf = slot_fids(jm)
         if recycled:
             sf[loop] += 1000
