@@ -15,9 +15,10 @@ import torch
 
 from active_orb_slam2_tpu_torch.config import SlamConfig
 from active_orb_slam2_tpu_torch.geometry.projection import CameraParams
-from active_orb_slam2_tpu_torch.ops.orb import OrbFeatures, build_extractor
+from active_orb_slam2_tpu_torch.ops.orb import (
+    OrbFeatures, build_extractor, build_extractor_stages)
 from active_orb_slam2_tpu_torch.ops.stereo import compute_stereo_matches
-from active_orb_slam2_tpu_torch.utils import trace
+from active_orb_slam2_tpu_torch.utils import graphs, trace
 
 
 class FrameData(NamedTuple):
@@ -81,22 +82,47 @@ def build_frame_pipeline(cfg: SlamConfig):
     uint16 millimetres (or float metres).  Both lie on the device the
     frame is built on; ``n_depth`` stays a device tensor.  A mono frame
     has no depth: ``ur`` is -1 and ``depth`` 0 for every feature.
+
+    ``make_rgbd`` runs as two segments of a ``utils/graphs.py`` chain
+    around the keypoint stage (K2 on the card, an eager call): F1, the
+    casts and the extractor's ``detect``; F2, the extractor's
+    ``features``, the depth sampling and undistortion and ``n_depth``.
+    On the card they are CUDA graphs, replayed from the second frame of
+    an image size on; what it returns, and K2's arguments, are the
+    frame's own tensors.
     """
     cam = cfg.camera
     dist = cfg.distortion
+    stages = build_extractor_stages(cfg.orb, cam.height, cam.width)
     extract = build_extractor(cfg.orb, cam.height, cam.width)
+    chain = graphs.Chain()
 
-    @trace.traced("frame")
-    def make_rgbd(gray, depth_map):
+    def detect_rgbd(gray, depth_map):
         img = gray.to(torch.float32)
         depth = depth_map.to(torch.float32)
         if depth_map.dtype == torch.uint16:
             depth = depth * torch.tensor(1e-3, dtype=torch.float32)  # mm -> m
-        feats = extract(img)
-        with trace.span("frame.depth"):
-            frame = frame_from_features(feats, cam, depth, dist)
-            n_depth = (frame.valid & (frame.depth > 0.1)).sum()
+        return stages.detect(img), depth
+
+    def finish_rgbd(detected, depth, ang, desc):
+        _, ys, xs, resp = detected
+        frame = frame_from_features(stages.features(ys, xs, resp, ang, desc),
+                                    cam, depth, dist)
+        n_depth = (frame.valid & (frame.depth > 0.1)).sum()
         return frame, n_depth.to(torch.int32)
+
+    @trace.traced("frame")
+    def make_rgbd(gray, depth_map):
+        run = chain.start(gray.device, graphs.layout(gray, depth_map))
+        with run.span("frame.keypoints"):
+            detected, depth = run("F1", detect_rgbd, gray, depth_map)
+        with trace.span("frame.describe"):
+            levels, ys, xs, _ = detected
+            ang, desc = stages.describe(*run.own((levels, ys, xs)))
+        with trace.span("frame.depth"):
+            out = run("F2", lambda a, d: finish_rgbd(detected, depth, a, d),
+                      ang, desc)
+        return run.own(out)
 
     @trace.traced("frame")
     def make_mono(gray):

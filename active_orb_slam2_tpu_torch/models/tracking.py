@@ -40,7 +40,7 @@ from active_orb_slam2_tpu_torch.ops.matching import (
 from active_orb_slam2_tpu_torch.ops.pose_opt_kernel import (
     pose_optimization_fused)
 from active_orb_slam2_tpu_torch.ops.topk import stable_topk
-from active_orb_slam2_tpu_torch.utils import trace
+from active_orb_slam2_tpu_torch.utils import graphs, trace
 
 # retired-stats vector layout (the step's packed per-frame scalars):
 # [0] motion-stage inliers  [1] local-stage inliers  [2] tracking ok
@@ -150,19 +150,20 @@ def _match_candidates(cam, pose, xyz, desc, max_dist_bound, cand_ok,
     return torch.where(ok, idx, -1), ok
 
 
-def _pose_opt(cam, pose0, frame: FrameData, pw, valid):
-    """Motion-only BA of the frame's valid features against points pw
-    [F, 3] where ``valid``."""
+def _pose_opt_args(pose0, frame: FrameData, pw, valid):
+    """The motion-only BA's arguments after the camera (pose0, pw,
+    obs_uvr, level, has_stereo, valid) for the frame's valid features
+    against points pw [F, 3] where ``valid``."""
     obs_uvr = torch.cat([frame.uv, frame.ur[:, None]], dim=-1)
-    return pose_optimization_fused(cam, pose0, pw, obs_uvr, frame.level,
-                                   frame.ur > 0, valid & frame.valid)
+    return pose0, pw, obs_uvr, frame.level, frame.ur > 0, valid & frame.valid
 
 
-def _pose_opt_from_assoc(cam, pose0, m: MapState, frame: FrameData, assoc):
-    """Motion-only BA over the current feature -> point associations."""
+def _pose_opt_args_from_assoc(pose0, m: MapState, frame: FrameData, assoc):
+    """The motion-only BA's arguments over the current feature -> point
+    associations."""
     pt = torch.clamp(assoc, min=0).long()
-    return _pose_opt(cam, pose0, frame, m.pt_xyz[pt],
-                     (assoc >= 0) & m.pt_valid[pt])
+    return _pose_opt_args(pose0, frame, m.pt_xyz[pt],
+                          (assoc >= 0) & m.pt_valid[pt])
 
 
 def apply_visibility_counters(m: MapState, visible_mask, found_mask
@@ -183,173 +184,218 @@ def build_track_step(cfg: SlamConfig, local_cand: int = 2048):
     ``allow_kf`` (bool or bool tensor) gates NeedNewKeyFrame;
     ``loc_mode`` (a Python bool) turns on localization-only tracking
     with temporal points; ``m`` is updated in place and returned.
+
+    The step runs as three segments of a ``utils/graphs.py`` chain
+    around its two motion-only BAs (K1 on the card, eager calls of
+    ``pose_optimization_fused``): T1, the motion stage up to the first
+    BA's arguments; T2, the fallback and the local-map stage up to the
+    second's; T3, the keyframe stage through the stats.  On the card they
+    are CUDA graphs keyed by the input layout, ``allow_kf``, ``loc_mode``
+    and the addresses of the map's tensors, which they update in place:
+    after a call that replaced a map tensor the step runs eagerly once,
+    then captures again.  ``stats`` and K1's arguments are the call's own
+    tensors; replayed, ``new_st`` lies in the buffers the next replay
+    reads it from (only the newest state may be read).
     """
     cam = cfg.camera
     tcfg = cfg.tracking
     create_kf_fn = make_create_keyframe_fn(cfg)
     kf_min = max(tcfg.kf_min_interval, 1)
     max_kf = cfg.map.max_keyframes
+    chain = graphs.Chain()
+
+    def motion(m: MapState, frame: FrameData, st: TrackState, loc_mode):
+        """T1: (frame, st, assoc1), the first BA's arguments."""
+        F = st.assoc.shape[0]
+        pred = torch.where(st.vel_ok, se3_compose(st.velocity, st.pose),
+                           st.pose)
+
+        # ---- motion-model stage: re-find the last frame's points -------
+        # candidate f is the map point of last-frame feature f or, in
+        # localization-only mode, its temporal point (same descriptor)
+        prev_pts = torch.clamp(st.assoc, min=0).long()
+        map_ok = (st.assoc >= 0) & m.pt_valid[prev_pts]
+        cand_xyz, cand_desc, cand_maxd, cand_ok = (
+            m.pt_xyz[prev_pts], m.pt_desc[prev_pts],
+            m.pt_max_dist[prev_pts],
+            map_ok)
+        if loc_mode:
+            use_tmp = st.tmp_ok & ~map_ok
+            cand_xyz = torch.where(use_tmp[:, None], st.tmp_xyz, cand_xyz)
+            cand_desc = torch.where(use_tmp[:, None], st.tmp_desc, cand_desc)
+            cand_maxd = torch.where(use_tmp, st.tmp_max_dist, cand_maxd)
+            cand_ok = map_ok | use_tmp
+        idx1, cok = _match_candidates(
+            cam, pred, cand_xyz, cand_desc, cand_maxd, cand_ok, frame,
+            radius_base=15.0, ratio=tcfg.nn_ratio_motion, max_dist=100.0,
+            already=torch.zeros_like(frame.valid), query_angle=st.angle)
+        matched_c = (idx1 >= 0) & cok
+        # temporal matches feed the motion-only BA, never the map
+        # association
+        map_c = matched_c & ~use_tmp if loc_mode else matched_c
+        assoc1 = scatter_max(F, torch.clamp(idx1, min=0),
+                             torch.where(map_c, prev_pts, -1))
+        if loc_mode:
+            tmp_src = scatter_max(
+                F, torch.clamp(idx1, min=0), torch.where(
+                    matched_c & use_tmp,
+                    torch.arange(F, dtype=torch.int32,
+                                 device=idx1.device), -1))
+            tmp_src = torch.where(assoc1 >= 0, -1, tmp_src)
+            pw1 = torch.where(
+                (tmp_src >= 0)[:, None],
+                st.tmp_xyz[torch.clamp(tmp_src, min=0).long()],
+                m.pt_xyz[torch.clamp(assoc1, min=0).long()])
+            args = _pose_opt_args(pred, frame, pw1,
+                                  (assoc1 >= 0) | (tmp_src >= 0))
+        else:
+            args = _pose_opt_args_from_assoc(pred, m, frame, assoc1)
+        return (frame, st, assoc1), args
+
+    def local_map(m: MapState, moved, res1):
+        """T2: (assoc, visible_mask, n_inliers1), the second BA's
+        arguments."""
+        frame, st, assoc1 = moved
+        pose1, inliers1, n_inliers1 = res1
+        P = m.max_points
+        F = st.assoc.shape[0]
+        # TrackReferenceKeyFrame-style fallback: on a collapsed motion
+        # stage, drop its pose and associations and search wide from the
+        # last frame's pose
+        mm_ok = n_inliers1 >= tcfg.min_inliers_track
+        assoc1 = torch.where(mm_ok & inliers1, assoc1, -1)
+        pose = torch.where(mm_ok, pose1, st.pose)
+        local_radius = torch.where(mm_ok, 4.0, 25.0)
+
+        # ---- local-map stage -------------------------------------------
+        # local-KF vote through the forward observation store; on a
+        # motion-stage collapse the previous frame's associations vote
+        vote_src = torch.where(mm_ok, assoc1, st.assoc)
+        vote_mask_p = scatter_any(P, torch.clamp(vote_src, min=0),
+                                  vote_src >= 0)
+        matched_mask_p = scatter_any(P, torch.clamp(assoc1, min=0),
+                                     assoc1 >= 0)
+        obs_pt = torch.clamp(m.kf_point, min=0).long()
+        votes = ((m.kf_point >= 0) & vote_mask_p[obs_pt]
+                 & m.kf_valid[:, None]).to(torch.int32).sum(1)         # [K]
+        nloc = min(tcfg.max_local_keyframes, m.max_keyframes)
+        vote_w, local_kf = stable_topk(votes, nloc)
+        local_kf_ok = vote_w > 0
+        lk_point = m.kf_point[local_kf]                                # [L, F]
+        lk_obs = (lk_point >= 0) & local_kf_ok[:, None]
+        local_mask = scatter_any(
+            P, torch.clamp(lk_point, min=0).reshape(-1),
+            lk_obs.reshape(-1)) & m.pt_valid
+
+        vis, _, _, _, _ = in_frustum(cam, pose, m.pt_xyz, m.pt_normal,
+                                     m.pt_min_dist, m.pt_max_dist)
+        cand_mask = local_mask & vis & ~matched_mask_p
+        visible_mask = local_mask & vis
+        # the local_cand lowest-index candidates
+        _, cand_idx = stable_topk(cand_mask.to(torch.int32), local_cand)
+        idx2, ok2 = _match_candidates(
+            cam, pose, m.pt_xyz[cand_idx], m.pt_desc[cand_idx],
+            m.pt_max_dist[cand_idx], cand_mask[cand_idx], frame,
+            radius_base=local_radius, ratio=tcfg.nn_ratio_local,
+            max_dist=float(tcfg.th_high), already=assoc1 >= 0)
+        assoc2 = scatter_max(F, torch.clamp(idx2, min=0),
+                             torch.where((idx2 >= 0) & ok2, cand_idx, -1))
+        assoc = torch.where(assoc1 >= 0, assoc1, assoc2)
+        return ((assoc, visible_mask, n_inliers1),
+                _pose_opt_args_from_assoc(pose, m, frame, assoc))
+
+    def keyframe(run, m: MapState, moved, mapped, res2, allow_kf, loc_mode):
+        """T3: (new_st, stats); replayed, new_st is written into T1's
+        static ``st`` (``run.carry``)."""
+        frame, st, _ = moved
+        assoc, visible_mask, n_inliers1 = mapped
+        pose, inliers2, n_inliers2 = res2
+        P = m.max_points
+        assoc = torch.where(inliers2, assoc, -1)
+        found_mask = scatter_any(P, torch.clamp(assoc, min=0), assoc >= 0)
+
+        velocity = se3_compose(pose, se3_inverse(st.pose))
+        ok = n_inliers2 >= tcfg.min_inliers_local
+        if loc_mode:
+            # visual odometry on temporal points when the map is out of
+            # view (the reference's mbVO state)
+            ok = ok | (n_inliers1 >= 20)
+        # temporal points from this frame's depth (UpdateLastFrame)
+        Twc = se3_inverse(pose)
+        t_z = frame.depth
+        t_x = (frame.uv[:, 0] - cam.cx) / cam.fx * t_z
+        t_y = (frame.uv[:, 1] - cam.cy) / cam.fy * t_z
+        tmp_pw = se3_apply(Twc, torch.stack([t_x, t_y, t_z], dim=-1))
+        tmp_dist = torch.linalg.vector_norm(
+            tmp_pw - _cam_center(pose)[None], dim=-1)
+        close = frame.valid & (frame.depth > 0.1) \
+            & (frame.depth < tcfg.th_depth)
+
+        apply_visibility_counters(m, visible_mask, found_mask)
+
+        # ---- NeedNewKeyFrame + CreateNewKeyFrame, decided on device ----
+        close_tracked = (close & (assoc >= 0)).sum()
+        close_unmatched = (close & (assoc < 0)).sum()
+        since = st.frames_since_kf + 1
+        live = m.kf_valid.sum()
+        weak = n_inliers2 < tcfg.kf_ref_ratio * torch.clamp(
+            st.last_kf_inliers, min=1)
+        need_close = (close_tracked < 100) & (close_unmatched > 70)
+        need = (ok & allow_kf & (since >= kf_min) & (live < max_kf)
+                & ((since >= tcfg.kf_max_interval)
+                   | ((weak | need_close) & (n_inliers2 > 15))))
+        k, inserted = create_kf_fn(m, frame, pose, assoc, st.frame_id,
+                                   st.kf_seq, st.last_kf_slot, enable=need)
+        kf_slot = torch.where(inserted, k, -1).to(torch.int32)
+
+        i32 = torch.int32
+        new_st = TrackState(
+            pose=pose, velocity=velocity, vel_ok=st.ok, assoc=assoc,
+            angle=frame.angle, n_inliers=n_inliers2, ok=ok,
+            frame_id=st.frame_id + 1,
+            kf_seq=st.kf_seq + inserted.to(i32),
+            last_kf_slot=torch.where(inserted, kf_slot, st.last_kf_slot),
+            last_kf_inliers=torch.where(inserted, n_inliers2,
+                                        st.last_kf_inliers),
+            frames_since_kf=torch.where(inserted, 0, since).to(i32),
+            tmp_xyz=tmp_pw, tmp_desc=frame.desc,
+            tmp_max_dist=tmp_dist * torch.pow(
+                1.2, frame.level.to(torch.float32)),
+            tmp_ok=close)
+
+        # packed per-frame scalars + pose + ref-KF pose: one pull for the
+        # host state machine
+        ref_slot = torch.clamp(new_st.last_kf_slot, min=0).long().view(1)
+        f32 = torch.float32
+        stats = torch.cat([torch.stack([
+            n_inliers1.to(f32), n_inliers2.to(f32), ok.to(f32),
+            close_tracked.to(f32), close_unmatched.to(f32),
+            (assoc >= 0).sum().to(f32), kf_slot.to(f32),
+            new_st.last_kf_slot.to(f32)]),
+            pose, m.kf_pose[ref_slot][0],
+            m.kf_frame_id[ref_slot].to(f32)])
+        return run.carry(st, new_st), stats
 
     @trace.traced("track")
     def track_step(m: MapState, frame: FrameData, st: TrackState,
                    allow_kf=False, loc_mode: bool = False):
-        P = m.max_points
-        F = st.assoc.shape[0]
+        run = chain.start(st.pose.device, (
+            graphs.layout(frame, st, allow_kf), bool(loc_mode),
+            graphs.addresses(m)))
         with trace.span("track.motion"):
-            pred = torch.where(st.vel_ok, se3_compose(st.velocity, st.pose),
-                               st.pose)
-
-            # ---- motion-model stage: re-find the last frame's points -------
-            # candidate f is the map point of last-frame feature f or, in
-            # localization-only mode, its temporal point (same descriptor)
-            prev_pts = torch.clamp(st.assoc, min=0).long()
-            map_ok = (st.assoc >= 0) & m.pt_valid[prev_pts]
-            cand_xyz, cand_desc, cand_maxd, cand_ok = (
-                m.pt_xyz[prev_pts], m.pt_desc[prev_pts],
-                m.pt_max_dist[prev_pts],
-                map_ok)
-            if loc_mode:
-                use_tmp = st.tmp_ok & ~map_ok
-                cand_xyz = torch.where(use_tmp[:, None], st.tmp_xyz, cand_xyz)
-                cand_desc = torch.where(use_tmp[:, None], st.tmp_desc,
-                                        cand_desc)
-                cand_maxd = torch.where(use_tmp, st.tmp_max_dist, cand_maxd)
-                cand_ok = map_ok | use_tmp
-            idx1, cok = _match_candidates(
-                cam, pred, cand_xyz, cand_desc, cand_maxd, cand_ok, frame,
-                radius_base=15.0, ratio=tcfg.nn_ratio_motion, max_dist=100.0,
-                already=torch.zeros_like(frame.valid), query_angle=st.angle)
-            matched_c = (idx1 >= 0) & cok
-            # temporal matches feed the motion-only BA, never the map
-            # association
-            map_c = matched_c & ~use_tmp if loc_mode else matched_c
-            assoc1 = scatter_max(F, torch.clamp(idx1, min=0),
-                                 torch.where(map_c, prev_pts, -1))
-            if loc_mode:
-                tmp_src = scatter_max(
-                    F, torch.clamp(idx1, min=0), torch.where(
-                        matched_c & use_tmp,
-                        torch.arange(F, dtype=torch.int32,
-                                     device=idx1.device), -1))
-                tmp_src = torch.where(assoc1 >= 0, -1, tmp_src)
-                pw1 = torch.where(
-                    (tmp_src >= 0)[:, None],
-                    st.tmp_xyz[torch.clamp(tmp_src, min=0).long()],
-                    m.pt_xyz[torch.clamp(assoc1, min=0).long()])
-                res1 = _pose_opt(cam, pred, frame, pw1,
-                                 (assoc1 >= 0) | (tmp_src >= 0))
-            else:
-                res1 = _pose_opt_from_assoc(cam, pred, m, frame, assoc1)
-            # TrackReferenceKeyFrame-style fallback: on a collapsed motion
-            # stage, drop its pose and associations and search wide from the
-            # last frame's pose
-            mm_ok = res1.n_inliers >= tcfg.min_inliers_track
-            assoc1 = torch.where(mm_ok & res1.inliers, assoc1, -1)
-            pose = torch.where(mm_ok, res1.pose, st.pose)
-            local_radius = torch.where(mm_ok, 4.0, 25.0)
-
+            moved, args1 = run("T1", lambda f, s: motion(m, f, s, loc_mode),
+                               frame, st)
+            res1 = pose_optimization_fused(cam, *run.own(args1))
         with trace.span("track.local_map"):
-            # ---- local-map stage -------------------------------------------
-            # local-KF vote through the forward observation store; on a
-            # motion-stage collapse the previous frame's associations vote
-            vote_src = torch.where(mm_ok, assoc1, st.assoc)
-            vote_mask_p = scatter_any(P, torch.clamp(vote_src, min=0),
-                                      vote_src >= 0)
-            matched_mask_p = scatter_any(P, torch.clamp(assoc1, min=0),
-                                         assoc1 >= 0)
-            obs_pt = torch.clamp(m.kf_point, min=0).long()
-            votes = ((m.kf_point >= 0) & vote_mask_p[obs_pt]
-                     & m.kf_valid[:, None]).to(torch.int32).sum(1)     # [K]
-            nloc = min(tcfg.max_local_keyframes, m.max_keyframes)
-            vote_w, local_kf = stable_topk(votes, nloc)
-            local_kf_ok = vote_w > 0
-            lk_point = m.kf_point[local_kf]                            # [L, F]
-            lk_obs = (lk_point >= 0) & local_kf_ok[:, None]
-            local_mask = scatter_any(
-                P, torch.clamp(lk_point, min=0).reshape(-1),
-                lk_obs.reshape(-1)) & m.pt_valid
-
-            vis, _, _, _, _ = in_frustum(cam, pose, m.pt_xyz, m.pt_normal,
-                                         m.pt_min_dist, m.pt_max_dist)
-            cand_mask = local_mask & vis & ~matched_mask_p
-            visible_mask = local_mask & vis
-            # the local_cand lowest-index candidates
-            _, cand_idx = stable_topk(cand_mask.to(torch.int32), local_cand)
-            idx2, ok2 = _match_candidates(
-                cam, pose, m.pt_xyz[cand_idx], m.pt_desc[cand_idx],
-                m.pt_max_dist[cand_idx], cand_mask[cand_idx], frame,
-                radius_base=local_radius, ratio=tcfg.nn_ratio_local,
-                max_dist=float(tcfg.th_high), already=assoc1 >= 0)
-            assoc2 = scatter_max(F, torch.clamp(idx2, min=0),
-                                 torch.where((idx2 >= 0) & ok2, cand_idx, -1))
-            assoc = torch.where(assoc1 >= 0, assoc1, assoc2)
-
-            res2 = _pose_opt_from_assoc(cam, pose, m, frame, assoc)
-            assoc = torch.where(res2.inliers, assoc, -1)
-            pose = res2.pose
-            found_mask = scatter_any(P, torch.clamp(assoc, min=0), assoc >= 0)
-
+            mapped, args2 = run("T2", lambda r: local_map(m, moved, r),
+                                (res1.pose, res1.inliers, res1.n_inliers))
+            res2 = pose_optimization_fused(cam, *run.own(args2))
         with trace.span("track.keyframe"):
-            velocity = se3_compose(pose, se3_inverse(st.pose))
-            ok = res2.n_inliers >= tcfg.min_inliers_local
-            if loc_mode:
-                # visual odometry on temporal points when the map is out of
-                # view (the reference's mbVO state)
-                ok = ok | (res1.n_inliers >= 20)
-            # temporal points from this frame's depth (UpdateLastFrame)
-            Twc = se3_inverse(pose)
-            t_z = frame.depth
-            t_x = (frame.uv[:, 0] - cam.cx) / cam.fx * t_z
-            t_y = (frame.uv[:, 1] - cam.cy) / cam.fy * t_z
-            tmp_pw = se3_apply(Twc, torch.stack([t_x, t_y, t_z], dim=-1))
-            tmp_dist = torch.linalg.vector_norm(
-                tmp_pw - _cam_center(pose)[None], dim=-1)
-            close = frame.valid & (frame.depth > 0.1) \
-                & (frame.depth < tcfg.th_depth)
-
-            apply_visibility_counters(m, visible_mask, found_mask)
-
-            # ---- NeedNewKeyFrame + CreateNewKeyFrame, decided on device --
-            close_tracked = (close & (assoc >= 0)).sum()
-            close_unmatched = (close & (assoc < 0)).sum()
-            since = st.frames_since_kf + 1
-            live = m.kf_valid.sum()
-            weak = res2.n_inliers < tcfg.kf_ref_ratio * torch.clamp(
-                st.last_kf_inliers, min=1)
-            need_close = (close_tracked < 100) & (close_unmatched > 70)
-            need = (ok & allow_kf & (since >= kf_min) & (live < max_kf)
-                    & ((since >= tcfg.kf_max_interval)
-                       | ((weak | need_close) & (res2.n_inliers > 15))))
-            k, inserted = create_kf_fn(m, frame, pose, assoc, st.frame_id,
-                                       st.kf_seq, st.last_kf_slot, enable=need)
-            kf_slot = torch.where(inserted, k, -1).to(torch.int32)
-
-            i32 = torch.int32
-            new_st = TrackState(
-                pose=pose, velocity=velocity, vel_ok=st.ok, assoc=assoc,
-                angle=frame.angle, n_inliers=res2.n_inliers, ok=ok,
-                frame_id=st.frame_id + 1,
-                kf_seq=st.kf_seq + inserted.to(i32),
-                last_kf_slot=torch.where(inserted, kf_slot, st.last_kf_slot),
-                last_kf_inliers=torch.where(inserted, res2.n_inliers,
-                                            st.last_kf_inliers),
-                frames_since_kf=torch.where(inserted, 0, since).to(i32),
-                tmp_xyz=tmp_pw, tmp_desc=frame.desc,
-                tmp_max_dist=tmp_dist * torch.pow(
-                    1.2, frame.level.to(torch.float32)),
-                tmp_ok=close)
-
-            # packed per-frame scalars + pose + ref-KF pose: one pull for the
-            # host state machine
-            ref_slot = torch.clamp(new_st.last_kf_slot, min=0).long().view(1)
-            f32 = torch.float32
-            stats = torch.cat([torch.stack([
-                res1.n_inliers.to(f32), res2.n_inliers.to(f32), ok.to(f32),
-                close_tracked.to(f32), close_unmatched.to(f32),
-                (assoc >= 0).sum().to(f32), kf_slot.to(f32),
-                new_st.last_kf_slot.to(f32)]),
-                pose, m.kf_pose[ref_slot][0],
-                m.kf_frame_id[ref_slot].to(f32)])
+            new_st, stats = run(
+                "T3",
+                lambda r, a: keyframe(run, m, moved, mapped, r, a, loc_mode),
+                (res2.pose, res2.inliers, res2.n_inliers), allow_kf)
+            stats = run.own(stats)
         return new_st, stats, m
 
     return track_step

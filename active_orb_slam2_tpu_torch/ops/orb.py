@@ -17,7 +17,7 @@ Descriptors are int32 with the same bits as the JAX package's uint32.
 
 import functools
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -261,14 +261,30 @@ def level_columns(n_per_level: tuple, scale_factor: float,
             torch.from_numpy(scale).to(device))
 
 
-def build_extractor(cfg: OrbConfig, height: int, width: int):
-    """Return ``image [H, W] float32 -> OrbFeatures`` for this size.
-    Its stages are the tracer's ``frame.pyramid``, ``frame.fast`` and
-    ``frame.topk`` (once a level) and ``frame.describe``."""
+class ExtractorStages(NamedTuple):
+    """The extractor of one image size in its three stages:
+
+    * ``detect(img) -> (levels, ys, xs, resp)``: the pyramid, FAST with
+      NMS and the threshold fallback, and the cell top-k of every level;
+      the keypoints of all levels concatenated, level 0's first;
+    * ``describe(levels, ys, xs) -> (angles, desc)``: the keypoint stage
+      of all levels (on the card one launch of K2);
+    * ``features(ys, xs, resp, angles, desc) -> OrbFeatures``.
+    """
+    detect: Callable
+    describe: Callable
+    features: Callable
+
+
+def build_extractor_stages(cfg: OrbConfig, height: int, width: int
+                           ) -> ExtractorStages:
+    """The stages of :func:`build_extractor` for this size.  ``detect``
+    opens the tracer's ``frame.pyramid``, ``frame.fast`` and
+    ``frame.topk`` spans (once a level)."""
     sizes = level_sizes(height, width, cfg)
     n_per_level = features_per_level(cfg)
 
-    def extract(img):
+    def detect(img):
         levels, ys, xs, resp = [], [], [], []
         for (h, w), n_l in zip(sizes, n_per_level):
             # each level is resized straight from level 0, as in the
@@ -284,14 +300,32 @@ def build_extractor(cfg: OrbConfig, height: int, width: int):
             ys.append(y)
             xs.append(x)
             resp.append(r)
-        with trace.span("frame.describe"):
-            ys, xs, resp = torch.cat(ys), torch.cat(xs), torch.cat(resp)
-            ang, desc = keypoint_stage(levels, ys, xs, n_per_level, cfg.pad)
+        return levels, torch.cat(ys), torch.cat(xs), torch.cat(resp)
+
+    def describe(levels, ys, xs):
+        return keypoint_stage(levels, ys, xs, n_per_level, cfg.pad)
+
+    def features(ys, xs, resp, ang, desc):
         level, scale = level_columns(tuple(n_per_level), cfg.scale_factor,
-                                     img.device)
+                                     ys.device)
         uv = torch.stack([xs.to(torch.float32) * scale,
                           ys.to(torch.float32) * scale], dim=-1)
         return OrbFeatures(uv=uv, level=level, angle=ang, response=resp,
                            desc=desc, valid=resp > 0.0)
+
+    return ExtractorStages(detect, describe, features)
+
+
+def build_extractor(cfg: OrbConfig, height: int, width: int):
+    """Return ``image [H, W] float32 -> OrbFeatures`` for this size: the
+    three stages of :func:`build_extractor_stages`, the keypoint stage
+    in the tracer's ``frame.describe`` span."""
+    stages = build_extractor_stages(cfg, height, width)
+
+    def extract(img):
+        levels, ys, xs, resp = stages.detect(img)
+        with trace.span("frame.describe"):
+            ang, desc = stages.describe(levels, ys, xs)
+        return stages.features(ys, xs, resp, ang, desc)
 
     return extract

@@ -20,7 +20,8 @@ modules that have no handle on the ``System`` (``ops/orb.py``).
 * Nothing here reads a device value.  ``enable(sync=True)`` makes every
   span wait for the card before it closes, so that a span holds its
   stage's device time; for offline profiles only, since it serializes
-  the host with the card.
+  the host with the card.  A span inside a CUDA graph's capture does
+  not wait.
 * ``anchor()``, called inside ``torch.profiler.profile``, ties this
   clock to the profiler's: see ``profiler_offset_ns``.
 * ``write_chrome(path)`` writes the spans and counters as Chrome
@@ -88,7 +89,10 @@ class _On:
 
 def _synchronize():
     import torch
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    # a span inside a CUDA graph's capture (utils/graphs.py) has no
+    # device work to wait for, and a capture may not synchronize
+    if torch.cuda.is_available() and torch.cuda.is_initialized() \
+            and not torch.cuda.is_current_stream_capturing():
         torch.cuda.synchronize()
 
 

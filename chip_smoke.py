@@ -23,6 +23,11 @@ Phases (each raises, and so exits nonzero, on failure):
    ``bench_torch.tracking_window``, checking every frame tracks, that
    the main path launched both kernels, and the ATE against ground
    truth;
+4b. the tracking slice's frames with the per-frame step as CUDA graphs
+   (``utils/graphs.py``; the port's default on the card) against the
+   same segments run eagerly: K1 twice a tracked frame and K2 once a
+   frame, the trajectory equal bit for bit, each segment's captures,
+   replays and eager runs, and each capture's host-clock ms logged;
 5. the mapping slice: ``System(cfg_map).track_rgbd`` with local mapping
    on the same frames (``bench.py``'s full-pipeline configuration
    without loop closing: default 512-keyframe arena, a keyframe at
@@ -808,6 +813,69 @@ def phase_slice(device, cfg, frames, gt):
     if not ate <= ATE_BOUND_M:
         raise RuntimeError(f"ATE {ate:.5f} m above {ATE_BOUND_M} m")
     return launches
+
+
+class eager_segments:
+    """Inside: the per-frame step's graph segments run eagerly on the
+    card too (``utils/graphs.py``'s choice of backend swapped)."""
+
+    def __enter__(self):
+        from active_orb_slam2_tpu_torch.utils import graphs
+        self._saved = graphs._backend
+        graphs._backend = lambda device: None
+
+    def __exit__(self, *exc):
+        from active_orb_slam2_tpu_torch.utils import graphs
+        graphs._backend = self._saved
+
+
+def phase_graphs(device, cfg, frames):
+    """The tracking slice's frames with the step's CUDA graphs against
+    the same segments run eagerly: launches, the trajectory bit for bit,
+    the counters and each capture's time."""
+    from active_orb_slam2_tpu_torch.models.system import System
+    from active_orb_slam2_tpu_torch.utils import graphs, trace
+
+    def track():
+        slam = System(cfg, use_mapping=False, device=device)
+        run_frames(slam, frames)
+        return slam.frame_trajectory()[1]
+
+    with eager_segments():
+        eager = track()
+    backend = graphs._backend(device)
+    capture, capture_ms = backend.capture, []
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = capture(fn)
+        capture_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    backend.capture = timed
+    before = trace.counters()
+    reset_launches()
+    try:
+        graphed = track()
+    finally:
+        del backend.capture
+    launches = kernel_launches()
+    now = trace.counters()
+    counts = {k[len("graph."):]: now[k] - before.get(k, 0) for k in sorted(now)
+              if k.startswith("graph.") and now[k] != before.get(k, 0)}
+    log(f"graphs: counters {counts}; {len(capture_ms)} captures, ms "
+        f"{', '.join(f'{t:.1f}' for t in capture_ms)} (host clock, each "
+        f"with its segment's Python run and the graph's instantiation); "
+        f"launches {launches}")
+    if launches != {"pose_opt": 2 * (N_FRAMES - 1), "keypoints": N_FRAMES}:
+        raise RuntimeError(f"graphs: launches {launches}")
+    if not np.array_equal(eager, graphed):
+        raise RuntimeError(
+            f"graphs: the trajectory parts from the eager run's by "
+            f"{np.abs(eager - graphed).max():.3g}")
+    if counts.get("replays.T3", 0) < N_FRAMES - 4 \
+            or counts.get("replays.F2", 0) < N_FRAMES - 2:
+        raise RuntimeError(f"graphs: too few replays: {counts}")
 
 
 def run_frames(slam, frames, timed=False, track="track_rgbd"):
@@ -3032,6 +3100,7 @@ def main():
         device, cfg.camera)
     checks["pose_opt"]["variants"]["ms_p8"] = p8
     runs = {"launches": phase_slice(device, cfg, frames, gt)}
+    phase_graphs(device, cfg, frames)
     map_slam, runs["mapping_launches"] = phase_mapping_slice(device, frames,
                                                              gt)
     phase_mapping_step(map_slam)
