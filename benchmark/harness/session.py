@@ -2,6 +2,11 @@
 the warm-up frames one at a time, then the mix's mode, if it names
 one), the paced window, the traced stretch, the check.
 
+A traced run also turns the program's own tracer on before the
+``System`` is built, ties it to the profiler's clock when the stretch's
+profiler starts, and hands its spans to the metric readers as
+``run.program`` (``benchmark/harness/program_trace.py``).
+
 The window is paced as ORB-SLAM2's dataset runners pace it
 (``rgbd_tum.cc``, ``stereo_kitti.cc``): one client hands in frame k once
 the call for frame k-1 has returned, and not before its timestamp k /
@@ -21,7 +26,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from benchmark.harness import check, definitions, spans, trace
+from benchmark.harness import check, definitions, program_trace, spans, trace
 from benchmark.reference import settings as ref_settings
 from benchmark.traffic import generate
 
@@ -205,13 +210,18 @@ def frame_outcomes(slam, first_fid, n):
     return out
 
 
-def loop_counts(slam):
-    """The loop closer's running counts, for the log."""
+def events(slam):
+    """The running counts of keyframe events: keyframes, loop candidates
+    (each verified), failed verifications, loops closed."""
     lc = slam.loop_closer
-    if lc is None:
-        return ""
-    return (f"; loop closer: {lc.n_candidates} candidates, "
-            f"{lc.n_verify_fail} failed verification")
+    return np.array([slam.kf_seq, lc.n_candidates if lc else 0,
+                     lc.n_verify_fail if lc else 0, slam.n_loops_closed])
+
+
+def events_line(counts):
+    kf, cand, fail, closed = (int(c) for c in counts)
+    return (f"{kf} keyframes, {cand} loop candidates, {fail} failed "
+            f"verification, {closed} loops closed")
 
 
 def run(cell_name, seed, seconds, trace_on, device, hooks=(), shrink=None,
@@ -237,6 +247,10 @@ def run(cell_name, seed, seconds, trace_on, device, hooks=(), shrink=None,
         f"{time.perf_counter() - t0:.2f} s")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    if trace_on:
+        from active_orb_slam2_tpu_torch.utils import trace as program
+        program.reset()
+        program.enable()
     slam = System(cfg, use_mapping=True,
                   use_loop_closing=bool(cj["loop_closing"]), device=device,
                   vocab_path=definitions.resolve(cj["vocabulary"]))
@@ -250,8 +264,7 @@ def run(cell_name, seed, seconds, trace_on, device, hooks=(), shrink=None,
         hand_in(slam, sensor, traffic, i)
         slam.flush()
     sync(device)
-    log(f"warm-up: {n_warm} frames, {slam.kf_seq} keyframes, "
-        f"{slam.n_loops_closed} loops closed{loop_counts(slam)}")
+    log(f"warm-up: {n_warm} frames, {events_line(events(slam))}")
     if mix.get("mode") == "localization":
         slam.activate_localization_mode()
 
@@ -283,9 +296,6 @@ def run(cell_name, seed, seconds, trace_on, device, hooks=(), shrink=None,
 
     setattr(slam, attr, keep)
     tracking.pose_optimization_fused = keep_solve
-    sp = spans.Spans(label=trace_on)
-    if trace_on:
-        sp.attach(slam)
 
     setup_s = process_age_s()
     host0, threads0 = host_cpu(), thread_cpu()
@@ -293,6 +303,10 @@ def run(cell_name, seed, seconds, trace_on, device, hooks=(), shrink=None,
     t_start = clock.h0
     hand, i = [], n_warm
     first_fid = slam.frame_id
+    # keyframe events a window frame's call ran (its retirement maps a
+    # keyframe and verifies a loop candidate inline)
+    ev0 = ev = events(slam)
+    carried = []
     while i - n_warm < n_max:
         due = t_start + (i - n_warm) / fps
         now = time.perf_counter()
@@ -301,12 +315,12 @@ def run(cell_name, seed, seconds, trace_on, device, hooks=(), shrink=None,
         if now < due:
             time.sleep(due - now)
         current[0] = i
-        with sp.span("system"):
-            h = time.perf_counter()
-            hand_in(slam, sensor, traffic, i)
-            sp.rows.append(("system", h, time.perf_counter()))
+        h = time.perf_counter()
+        hand_in(slam, sensor, traffic, i)
         clock.mark()
         hand.append(h)
+        ev, ev_before = events(slam), ev
+        carried.append(ev > ev_before)
         i += 1
     current[0] = None
     slam.flush()
@@ -316,22 +330,33 @@ def run(cell_name, seed, seconds, trace_on, device, hooks=(), shrink=None,
     latency_ms = (clock.done_s() - np.array(hand)) * 1e3
     outcomes = frame_outcomes(slam, first_fid, n_win)
     log(f"window: {n_win} frames in {t_end - t_start:.3f} s, "
-        f"{slam.kf_seq} keyframes, {slam.n_loops_closed} loops closed, "
-        f"{n_win - sum(outcomes)} not OK{loop_counts(slam)}")
+        f"{n_win - sum(outcomes)} not OK; in the window "
+        f"{events_line(events(slam) - ev0)}")
     log(host_share(host0, host_cpu(), t_end - t_start, threads0,
                    thread_cpu()))
     if n_win:
         q = np.percentile(latency_ms, [50, 90, 95, 99])
+        share = np.mean(carried, axis=0)
         log(f"pose ms: mean {latency_ms.mean():.3f}, p50 {q[0]:.3f}, "
             f"p90 {q[1]:.3f}, p95 {q[2]:.3f}, p99 {q[3]:.3f}, "
-            f"max {latency_ms.max():.3f}")
+            f"max {latency_ms.max():.3f}; frames carrying a keyframe's "
+            f"mapping {share[0]:.4f}, a loop verification {share[1]:.4f}")
 
-    prof = None
+    prof = handed = None
     if trace_on:
         prof = profile_stretch(slam, sensor, traffic, i,
-                               int(mix["profile_frames"]), device, sp)
+                               int(mix["profile_frames"]), device)
         i += int(mix["profile_frames"])
-    sp.detach()
+        program.disable()
+        offset, idle = (prof["offset_ns"], prof["idle_by_span"]) if prof \
+            else (None, None)
+        handed = program_trace.handover(program.records(), (t_start, t_end),
+                                        offset, idle)
+        log("set-up spans: " + ", ".join(
+            f"{k} {s:.3f} s ({n})" for k, s, n in
+            program_trace.setup_totals(handed.records, handed.first_frame)))
+        log("idle by program span: " + ", ".join(
+            f"{k} {s:.3f} s" for k, s in list(handed.idle.items())[:10]))
     setattr(slam, attr, built)
     tracking.pose_optimization_fused = solve
     peak = torch.cuda.max_memory_allocated(device) \
@@ -354,39 +379,48 @@ def run(cell_name, seed, seconds, trace_on, device, hooks=(), shrink=None,
         n_window=n_win, latency_ms=latency_ms,
         failed=n_win - sum(outcomes),
         gt_twc_window=traffic.twc[est_idx[win]].astype(np.float64),
-        est_tcw_window=np.asarray(tcw)[win], spans=sp, profile=prof,
-        memory_peak_bytes=int(peak))
+        est_tcw_window=np.asarray(tcw)[win], profile=prof,
+        program=handed, memory_peak_bytes=int(peak))
     numbers = check.frames_numbers(cap, traffic, rcam, rorb, sensor, device)
     numbers.update(check.solve_numbers(solves.items))
     numbers.update(check.trajectory_numbers(est_idx, tcw, pts, traffic))
     return r, numbers
 
 
-def profile_stretch(slam, sensor, traffic, start, n, device, sp):
+def profile_stretch(slam, sensor, traffic, start, n, device):
     """``torch.profiler`` over ``n`` whole frames handed in back to back
     after the window, ending with a flush and a synchronize; the kernel
-    entries' arguments kept for counting."""
+    entries' arguments kept for counting.  The program's tracer, on in a
+    traced run, is anchored to the profiler's clock as the profiler
+    starts, and the device's idle gaps are placed in its spans
+    (``idle_by_span``, seconds; ``idle_gaps``, its ten largest)."""
     from torch.profiler import ProfilerActivity, profile
     from active_orb_slam2_tpu_torch.kernels import keypoints, pose_opt
+    from active_orb_slam2_tpu_torch.utils import trace as program
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with spans.KernelArgs(pose_opt, ["pose_opt_cuda"]) as k1, \
             spans.KernelArgs(keypoints, ["keypoint_stage_cuda"]) as k2:
         with profile(activities=acts) as prof:
+            program.anchor()
             t0 = time.perf_counter()
             for i in range(start, start + n):
-                with sp.span("system"):
-                    hand_in(slam, sensor, traffic, i)
+                hand_in(slam, sensor, traffic, i)
             slam.flush()
             sync(device)
             stretch_us = (time.perf_counter() - t0) * 1e6
+    if device.type != "cuda":
+        return None
     t0 = time.perf_counter()
-    out = trace.read(trace.raw_events(prof), stretch_us) \
-        if device.type == "cuda" else None
+    ev = trace.raw_events(prof)
+    out = trace.read(ev, stretch_us)
+    offset = program.profiler_offset_ns(
+        [(name, int(a * 1e3)) for name, on_dev, a, _ in ev if not on_dev])
+    idle = program_trace.idle_by_span(program.records(), offset, ev)
+    out.update(frames=n, k1_args=k1.calls["pose_opt_cuda"],
+               k2_args=k2.calls["keypoint_stage_cuda"], offset_ns=offset,
+               idle_by_span=idle, idle_gaps=list(idle.items())[:10])
     print(f"trace: {n} frames profiled in {stretch_us / 1e6:.2f} s, read in "
           f"{time.perf_counter() - t0:.2f} s", file=sys.stderr, flush=True)
-    if out is not None:
-        out.update(frames=n, k1_args=k1.calls["pose_opt_cuda"],
-                   k2_args=k2.calls["keypoint_stage_cuda"])
     return out

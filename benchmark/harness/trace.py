@@ -1,9 +1,9 @@
 """Reading a ``torch.profiler`` trace of a stretch of whole frames:
 device busy time (the union of kernel, copy and fill intervals, the
 arithmetic of ``scripts/profile_torch_mapping.py::device_profile``),
-device operations, the operations that took most time, the idle gaps by
-the host span they fell in, and each hand-written kernel's device time
-per launch.
+device operations, the operations that took most time, and each
+hand-written kernel's device time per launch.  The idle gaps are placed
+in the program's spans by ``program_trace.idle_by_span``.
 
 The profiler's raw events are read as they are (``kineto_results``):
 building its tree of ``FunctionEvent`` objects took minutes for a
@@ -14,18 +14,16 @@ import collections
 
 import numpy as np
 
-LABELS = ("frame", "track", "mapping", "loop", "system")
-
 
 def raw_events(prof):
     """(name, on_device, start_us, end_us) of every event, without the
     ranges the profiler mirrors onto the device's timeline for the
-    host's labelled spans."""
+    host's labelled ranges."""
     from torch.autograd import DeviceType
     out = []
     for e in prof.profiler.kineto_results.events():
         on_dev = e.device_type() == DeviceType.CUDA
-        if on_dev and (e.is_user_annotation() or e.name() in LABELS):
+        if on_dev and e.is_user_annotation():
             continue
         out.append((e.name(), on_dev, e.start_ns() / 1e3, e.end_ns() / 1e3))
     return out
@@ -58,30 +56,9 @@ def read(events, stretch_us):
     per_op = collections.defaultdict(float)
     for n, a, b in dev:
         per_op[n] += b - a
-    host = [(a, b, n) for n, on_dev, a, b in events
-            if not on_dev and n in LABELS]
-    gaps = np.array(gaps_us(spans)).reshape(-1, 2)
-    mids = gaps.mean(1)
-    label = np.full(len(mids), "host:between_calls", dtype=object)
-    # the layers' spans do not overlap one another and lie inside a
-    # "system" span: label by the system span, then by the layer's
-    for outer in (True, False):
-        rows = sorted(r for r in host if (r[2] == "system") == outer)
-        if not rows:
-            continue
-        starts = np.array([r[0] for r in rows])
-        ends = np.array([r[1] for r in rows])
-        j = np.searchsorted(starts, mids, side="right") - 1
-        hit = (j >= 0) & (mids <= ends[np.maximum(j, 0)])
-        names = np.array(["host:" + r[2] for r in rows], dtype=object)
-        label[hit] = names[j[hit]]
-    idle = collections.defaultdict(float)
-    for name, (a, b) in zip(label, gaps):
-        idle[name] += float(b - a)
     return {
         "busy_us": busy_us(spans), "ops": len(dev), "stretch_us": stretch_us,
         "device_ops": sorted(per_op.items(), key=lambda kv: -kv[1])[:10],
-        "idle_gaps": sorted(idle.items(), key=lambda kv: -kv[1])[:10],
         "kernels": [(n, b - a) for n, a, b in dev],
     }
 

@@ -1,10 +1,6 @@
-"""Host ms per frame inside the frame pipeline (`make_rgbd` or `_make_stereo`)."""
+"""Host ms a window frame inside the program's ``frame`` spans (the
+frame pipeline: ``make_rgbd`` or ``_make_stereo``)."""
 
-from benchmark.harness import spans as _spans
+from benchmark.harness import program_trace
 
-
-def read(run):
-    if run.spans is None or not run.n_window:
-        return None
-    calls = _spans.in_window(run, "frame")
-    return _spans.total_ms(run, "frame") / run.n_window if calls else None
+read = program_trace.READERS["frame.host_ms"]

@@ -1,12 +1,7 @@
-"""Host ms per loop-closer call (``loop_closer.process_keyframe``): the
-BoW scoring, DetectLoop, and a verification or a correction where one
-comes."""
+"""Host ms a loop-closer call: the program's ``loop`` spans of the
+window's keyframes (BoW scoring, DetectLoop, and a verification or a
+correction where one comes), over their number."""
 
-from benchmark.harness import spans as _spans
+from benchmark.harness import program_trace
 
-
-def read(run):
-    if run.spans is None:
-        return None
-    calls = _spans.in_window(run, "loop")
-    return _spans.total_ms(run, "loop") / len(calls) if calls else None
+read = program_trace.READERS["loop.host_ms_per_kf"]

@@ -1,10 +1,6 @@
-"""Host ms per keyframe-mapping call (`keyframe_mapping`)."""
+"""Host ms a keyframe-mapping call: the program's ``mapping`` spans of
+the window's keyframes, over their number."""
 
-from benchmark.harness import spans as _spans
+from benchmark.harness import program_trace
 
-
-def read(run):
-    if run.spans is None:
-        return None
-    calls = _spans.in_window(run, "mapping")
-    return _spans.total_ms(run, "mapping") / len(calls) if calls else None
+read = program_trace.READERS["mapping.host_ms_per_kf"]

@@ -1,11 +1,7 @@
-"""Host ms per frame inside ``track_*``, less the spans of the layers it
-called there (frame pipeline, tracking, local mapping, loop closing)."""
+"""Host ms a window frame inside the program's ``system.track`` root
+span, less the spans of the layers it ran there (``frame``, ``track``,
+``mapping``, ``loop``)."""
 
-from benchmark.harness import spans as _spans
+from benchmark.harness import program_trace
 
-
-def read(run):
-    if run.spans is None or not run.n_window:
-        return None
-    return _spans.self_ms(run, "system", ("frame", "track", "mapping",
-                                          "loop")) / run.n_window
+read = program_trace.READERS["system.self_host_ms"]

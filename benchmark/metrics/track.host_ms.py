@@ -1,10 +1,6 @@
-"""Host ms per frame inside the tracking step (`track_step`)."""
+"""Host ms a window frame inside the program's ``track`` spans (the
+tracking step, ``track_step``)."""
 
-from benchmark.harness import spans as _spans
+from benchmark.harness import program_trace
 
-
-def read(run):
-    if run.spans is None or not run.n_window:
-        return None
-    calls = _spans.in_window(run, "track")
-    return _spans.total_ms(run, "track") / run.n_window if calls else None
+read = program_trace.READERS["track.host_ms"]

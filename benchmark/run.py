@@ -10,7 +10,8 @@ it up (set-up), hands frames in at the camera's rate for ``--seconds``
 after it, checks the answers against the plain reference, and prints
 one JSON line last: ``correct``, ``attempted``, ``failed``, ``metrics``
 (the cell's end-to-end metrics, or with ``--trace 1`` its per-layer
-metrics), ``device`` (and ``breakdown`` when traced), then ``checks``:
+metrics), ``device`` (and, when traced, ``breakdown`` and ``program``:
+the program's stage spans summed against its layer spans), then ``checks``:
 each number compared beside its limit, also the last lines on standard
 error.  Exits nonzero, printing no result, without a CUDA card, or if
 JAX or the JAX package was loaded.
@@ -71,7 +72,7 @@ def read_metrics(r, names):
 
 def result(r, numbers, limits, trace_on, device):
     import torch
-    from benchmark.harness import check, definitions
+    from benchmark.harness import check, definitions, program_trace
     ok, rows = check.verdict(numbers, limits)
     names = definitions.metric_names(r.cell, trace_on)
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
@@ -87,7 +88,9 @@ def result(r, numbers, limits, trace_on, device):
         dev["window_s"] = p["stretch_us"] / 1e6
         line["breakdown"] = {
             "device_ops": [[n, us / 1e6] for n, us in p["device_ops"]],
-            "idle_gaps": [[n, us / 1e6] for n, us in p["idle_gaps"]]}
+            "idle_gaps": [[n, s] for n, s in p["idle_gaps"]]}
+    if trace_on and r.program is not None:
+        line["program"] = program_trace.entry(r, line["metrics"])
     line["checks"] = {k: {"value": v, "limit": lim} for k, v, lim in rows}
     return line, rows
 

@@ -64,6 +64,12 @@ def test_benchmark_json_keeps_the_contract():
     for m in b["end_to_end"] + b["per_layer"]:
         assert os.path.exists(os.path.join(BENCH, "metrics",
                                            f"{m['name']}.py")), m["name"]
-    assert {m["name"] for m in b["end_to_end"]} == {
-        "fps", "pose_ms_p95", "setup_s"}
-    assert all(m["moves"] == "pose_ms_p95" for m in b["per_layer"])
+    cells = {w["name"] for w in b["workloads"]}
+    reports = {c: {m["name"] for m in b["end_to_end"]
+                   if c in m.get("workloads", cells)} for c in cells}
+    for c in cells:
+        assert "setup_s" in reports[c] and len(reports[c]) >= 2, c
+    for m in b["per_layer"]:
+        assert set(m.get("workloads", cells)) <= cells, m
+        for c in m.get("workloads", cells):
+            assert m["moves"] in reports[c], (m["name"], c)

@@ -1,5 +1,7 @@
 """The device renderer against the program's numpy renderer, the lens
-warp, the scaled stereo circuit and the seeding of the traffic.
+warp, the scaled stereo circuit, the paths against the program's and
+against their formulas as first written, and the seeding of the
+traffic.
 
 The texture is a hash of ``floor(p * freq)`` of the hit point, so a
 pixel whose ray hits within rounding of a block edge may take the
@@ -107,7 +109,8 @@ def _mix(name):
 
 @pytest.mark.parametrize("name,sensor", [("explore_loop", "rgbd"),
                                          ("localize_sweep", "rgbd"),
-                                         ("revisit_laps", "stereo")])
+                                         ("revisit_laps", "stereo"),
+                                         ("tour_verify", "rgbd")])
 def test_seed_fixes_the_traffic(name, sensor):
     mix = _mix(name)
     mix["render"]["supersample"] = 1
@@ -129,7 +132,8 @@ def test_seed_fixes_the_traffic(name, sensor):
                                  else np.uint16)
 
 
-@pytest.mark.parametrize("name", ["explore_loop", "revisit_laps"])
+@pytest.mark.parametrize("name", ["explore_loop", "revisit_laps",
+                                  "tour_verify"])
 def test_seed_draws_the_start_of_a_forward_path(name):
     mix = _mix(name)
     n = mix["path"]["start_points"]
@@ -155,6 +159,100 @@ def test_sweep_maps_the_path_then_drives_back_and_forth():
     ref = orbit_trajectory(m, mix["path"]["radius_m"],
                            mix["path"]["step_deg"])
     assert np.allclose(twc, np.stack(ref), atol=1e-6)
+
+
+def test_tour_is_the_programs_tour():
+    """Two laps of the tour kind, pose for pose the program's
+    ``tour_trajectory`` driven as ``traj[i % frames_per_lap]``, with the
+    step in height at the lap boundary kept."""
+    from active_orb_slam2_tpu_torch.io.synthetic import tour_trajectory
+    mix = _mix("tour_verify")
+    path = mix["path"]
+    lap = generate.cycle(path)
+    ref = np.stack(tour_trajectory(lap, path["ax_m"], path["az_m"],
+                                   path["fx"], path["fz"]))
+    start = generate.start_index(mix, 2 ** 31 + 3)
+    idx = generate.path_indices(mix, 2 ** 31 + 3, 2 * lap)
+    assert idx[0] == start and np.array_equal(np.sort(idx[:lap]),
+                                              np.arange(lap))
+    twc = generate.poses(path, idx, 1.0)
+    assert twc.dtype == np.float32
+    assert np.array_equal(twc, ref[idx])
+    step = twc[idx == 0][0, :3, 3] - twc[idx == lap - 1][0, :3, 3]
+    assert np.abs(step[[0, 2]]).max() < 1e-6
+    assert abs(abs(step[1]) - 0.176) < 1e-3
+    # a scaled world scales the tour's lengths and not its headings
+    half = generate.poses(path, idx, 0.5)
+    assert np.array_equal(half[:, :3, :3], twc[:, :3, :3])
+    assert np.array_equal(half[:, :3, 3], twc[:, :3, 3] * np.float32(0.5))
+
+
+def _loop_poses_as_first_written(idx, frames_per_lap, radius):
+    out = []
+    for i in idx:
+        th = 2.0 * np.pi * i / frames_per_lap
+        pos = np.array([radius * np.sin(th), 0.0, -radius * np.cos(th)],
+                       np.float32)
+        fwd = np.array([np.cos(th), 0.0, np.sin(th)], np.float32)
+        up = np.array([0.0, 1.0, 0.0], np.float32)
+        right = np.cross(up, fwd)
+        right /= np.linalg.norm(right)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = right, up, fwd, pos
+        out.append(T)
+    return np.stack(out)
+
+
+def _orbit_poses_as_first_written(idx, radius, step_deg):
+    out = []
+    for i in idx:
+        a = np.deg2rad(step_deg * i)
+        pos = np.array([radius * np.sin(a), 0.4 * np.sin(2.3 * a),
+                        radius * (np.cos(a) - 1.0) * 0.5], np.float32)
+        yaw = 0.25 * np.sin(a * 1.7)
+        pitch = 0.1 * np.sin(a * 0.9)
+        cy, sy = np.cos(yaw), np.sin(yaw)
+        cp, sp = np.cos(pitch), np.sin(pitch)
+        Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]], np.float32)
+        Rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]], np.float32)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = Ry @ Rx
+        T[:3, 3] = pos
+        out.append(T)
+    return np.stack(out)
+
+
+def _poses_as_first_written(path, idx, scale):
+    r = float(path["radius_m"]) * scale
+    if path["kind"] == "loop":
+        return _loop_poses_as_first_written(idx, int(path["frames_per_lap"]),
+                                            r)
+    return _orbit_poses_as_first_written(idx, r, float(path["step_deg"]))
+
+
+@pytest.mark.parametrize("name", ["explore_loop", "localize_sweep",
+                                  "revisit_laps"])
+def test_loop_and_orbit_paths_are_unchanged(name, monkeypatch):
+    """The loop and orbit kinds give, bit for bit, the poses of their
+    formulas as the benchmark first had them, and so the same frames for
+    a seed."""
+    mix = _mix(name)
+    path, scale = mix["path"], float(mix["world"].get("scale", 1.0))
+    for seed in (7, 2 ** 31 + 11):
+        idx = generate.path_indices(mix, seed, 2 * generate.cycle(path) + 5)
+        assert np.array_equal(generate.poses(path, idx, scale),
+                              _poses_as_first_written(path, idx, scale))
+    if name != "localize_sweep":
+        return
+    mix["render"]["supersample"] = 1
+    cam = small_cam(dist=(0.26, -0.95, -0.005, 0.003, 1.16))
+    dev = torch.device("cpu")
+    now = generate.make(mix, cam, 15.0, "rgbd", 2 ** 31 + 99, 4, dev)
+    monkeypatch.setattr(generate, "poses", _poses_as_first_written)
+    then = generate.make(mix, cam, 15.0, "rgbd", 2 ** 31 + 99, 4, dev)
+    for a, b in zip(now.images, then.images):
+        assert np.array_equal(a, b)
+    assert np.array_equal(now.twc, then.twc)
 
 
 @pytest.fixture

@@ -2,8 +2,10 @@
 (``benchmark/workloads/<traffic>.json``) and makes, on the device, every
 frame that a run can hand in, with its ground-truth pose.
 
-The mix fixes the world, the path and its speed, the order in which the
-path is driven, the render, the sensor noise, the warm-up and the mode.
+The mix fixes the world, the path (``loop``, ``orbit`` or ``tour``: the
+circle, the orbit and the Lissajous tour of ``io/synthetic.py``) and its
+speed, the order in which the path is driven, the render, the sensor
+noise, the warm-up and the mode.
 ``--seed`` draws the sensor noise of every frame and, on a path driven
 ``forward``, the starting point: one of the mix's ``start_points``
 points spaced evenly around the lap.  A ``sweep`` maps the path's poses
@@ -39,9 +41,9 @@ def frames_needed(mix, fps, seconds):
 
 
 def cycle(path):
-    """Distinct poses of the path: a lap of the loop, or the orbit's
-    frames."""
-    return int(path["frames_per_lap"] if path["kind"] == "loop"
+    """Distinct poses of the path: a lap of the loop or of the tour, or
+    the orbit's frames."""
+    return int(path["frames_per_lap"] if path["kind"] in ("loop", "tour")
                else path["frames"])
 
 
@@ -70,6 +72,14 @@ def path_indices(mix, seed, n_frames):
 
 
 def poses(path, idx, scale):
+    """Camera-to-world [len(idx), 4, 4] of the path's poses ``idx``; the
+    path's sizes are multiplied by the world's ``scale``."""
+    if path["kind"] == "tour":
+        twc = W.tour_poses(idx, cycle(path), float(path["ax_m"]),
+                           float(path["az_m"]), float(path["fx"]),
+                           float(path["fz"]))
+        twc[:, :3, 3] *= np.float32(scale)
+        return twc
     r = float(path["radius_m"]) * scale
     if path["kind"] == "loop":
         return W.loop_poses(idx, cycle(path), r)

@@ -4,7 +4,8 @@ warp and the sensor noise.
 
 A PyTorch copy of the program's ``io/synthetic.py`` (``default_world``,
 ``blocky_texture``, ``render_rgbd``, ``loop_trajectory``,
-``orbit_trajectory``, ``make_sequence``'s noise models) and ``ops/undistort.py``'s warp of an
+``orbit_trajectory``, ``tour_trajectory``, ``make_sequence``'s noise
+models) and ``ops/undistort.py``'s warp of an
 ideal image into a radtan lens, made to render hundreds of frames on the
 card in a few large calls.  ``scale`` multiplies the world, the path and
 the texture's cell size alike, so a scaled world seen by a camera with
@@ -78,6 +79,32 @@ def orbit_poses(idx, radius, step_deg):
         T = np.eye(4, dtype=np.float32)
         T[:3, :3] = Ry @ Rx
         T[:3, 3] = pos
+        out.append(T)
+    return np.stack(out)
+
+
+def tour_poses(idx, frames_per_lap, ax, az, fx, fz):
+    """Camera-to-world [len(idx), 4, 4] float32 of
+    ``io/synthetic.py::tour_trajectory(frames_per_lap, ax, az, fx, fz)``:
+    a Lissajous figure through the room with a tangent heading and a
+    0.3 m bob; frame i is at t = 2 pi i / (frames_per_lap - 1), so the
+    lap's last frame is back at the first one's x and z, not its
+    height."""
+    out = []
+    for i in idx:
+        t = 2.0 * np.pi * i / (frames_per_lap - 1)
+        pos = np.array([ax * np.sin(fx * t), 0.3 * np.sin(3.1 * t),
+                        az * np.sin(fz * t) * 0.5], np.float32)
+        vel = np.array([ax * fx * np.cos(fx * t), 0.0,
+                        az * fz * np.cos(fz * t) * 0.5], np.float32)
+        nv = np.linalg.norm(vel)
+        fwd = vel / nv if nv > 1e-6 else np.array([0, 0, 1], np.float32)
+        up = np.array([0.0, 1.0, 0.0], np.float32)
+        right = np.cross(up, fwd)
+        right /= np.linalg.norm(right)
+        up2 = np.cross(fwd, right)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = right, up2, fwd, pos
         out.append(T)
     return np.stack(out)
 
